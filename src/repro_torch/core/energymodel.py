@@ -1,0 +1,768 @@
+"""The Tool (§II) and its batched design-space engine, on PyTorch.
+
+The PyTorch port of ``repro.core.energymodel`` (the Tool and
+``evaluate_networks``); that module's docstring describes the energy and
+latency model.  Shapes and names follow the reference:
+
+* a "config" is a dict of equal-length float64 columns
+  (:class:`repro_torch.core.accelerator.ConfigGrid.fields`), a "layer
+  struct" a dict of per-layer columns (``rs_mapping.layer_struct``);
+* the heavy stage broadcasts ``[n_u, 1]`` config columns against
+  ``[1, L]`` layer columns, where ``n_u`` is the two-level dedup of the
+  grid: the RS mapping runs on the mapping-unique rows
+  (``_MAPPING_COLUMNS``), the access counts on the count-unique rows
+  (``_COUNT_COLUMNS``), and ``inv`` / ``inv_m`` gather back out;
+* all networks share one concatenated layer axis padded to a multiple of
+  256; ``segments`` holds each network's (start, stop) on it, and the 14
+  count terms are summed per segment before the per-config coefficients
+  are applied (``per_layer=True`` keeps the layer axis instead).
+
+Where the work runs.  Building the config columns, the ``np.unique``
+dedup and stacking the networks stay numpy on the host, as in the
+reference.  Everything from the heavy stage on runs in torch on
+``device``: float64 tensors throughout, because access counts exceed
+float32's exact-integer range.  Two heavy-stage backends:
+
+* ``"cuda"``: the hand-written kernels of ``src/repro_torch/csrc``
+  (through :mod:`repro_torch.kernels.count_terms`), which recompute the
+  mapping per count-unique row and fuse the segment sum;
+* ``"torch"``: the same arithmetic as plain torch operations.
+
+With ``device=None`` the engine runs on ``"cuda"`` and raises when no card
+is present; it never moves to the CPU on its own.  ``backend=None`` means
+``"cuda"`` on a CUDA device and ``"torch"`` on the CPU; ``"cuda"`` with CPU
+tensors raises.  Unlike the reference, there is no fallback chain: a
+kernel that fails to build or launch raises, and :func:`last_backend`
+reports what ran.
+
+The reference pads the unique axes and every chunk to bucket multiples so
+that jitted shapes repeat; eager torch and the CUDA kernels take any
+shape, so the port does not.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Mapping, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .accelerator import AcceleratorConfig, ConfigGrid
+from . import rs_mapping
+from .topology import Layer
+
+_POOL_OP_ENERGY = 0.2      # a pooling compare/add relative to a MAC
+
+_F64 = torch.float64
+
+
+def _mapping(cfg: Dict[str, Any], lay: Dict[str, Any]) -> Dict[str, Any]:
+    """RS mapping over (configs × layers) from struct-of-arrays inputs."""
+    return rs_mapping.mapping(
+        rows=cfg["rows"], cols=cfg["cols"],
+        c_ch=lay["c_ch"], m=lay["m"], ky=lay["ky"], kx=lay["kx"],
+        stride=lay["stride"], ix=lay["ix"], iy=lay["iy"],
+        oy=lay["oy"], ox=lay["ox"],
+        is_acc=lay["is_acc"], is_dw=lay["is_dw"], is_pool=lay["is_pool"],
+        gb_ifmap_words=cfg["gb_ifmap_words"],
+        rf_ifmap_words=cfg["rf_ifmap_words"],
+        rf_weight_words=cfg["rf_weight_words"],
+        rf_psum_words=cfg["rf_psum_words"])
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerReport:
+    """Per-layer outputs of the Tool (§II.B.2)."""
+
+    name: str
+    energy: float            # pJ
+    latency: float           # ns
+    macs: float
+    dram_reads: float
+    dram_writes: float
+    gb_reads: float
+    gb_writes: float
+    rf_accesses: float
+    utilization: float       # active PEs / total PEs (compute-time weighted)
+    mem_time: float          # ns spent on the memory hierarchy
+    array_time: float        # ns spent computing in the array
+    psum_spilled: float      # words of psum traffic that went to DRAM
+    ifmap_refetched: float   # extra ifmap words re-read from DRAM
+
+
+@dataclasses.dataclass(frozen=True)
+class NetworkReport:
+    name: str
+    energy: float
+    latency: float
+    layers: List[LayerReport]
+
+    @property
+    def edp(self) -> float:
+        return self.energy * self.latency
+
+    @property
+    def layer_latencies(self) -> np.ndarray:
+        return np.array([l.latency for l in self.layers])
+
+    @property
+    def layer_energies(self) -> np.ndarray:
+        return np.array([l.energy for l in self.layers])
+
+
+def _counts(cfg: Dict[str, Any], lay: Dict[str, Any],
+            mp: Dict[str, Any] | None = None) -> Dict[str, Any]:
+    """Access counts + time terms; broadcast over (configs × layers).
+
+    ``mp`` lets callers pass a precomputed RS mapping (the batched engine
+    evaluates it on the smaller mapping-unique config set and gathers)."""
+    if mp is None:
+        mp = _mapping(cfg, lay)
+
+    n_c, n_m = mp["n_c"], mp["n_m"]
+    w_psum = mp["w_psum"]
+    ky_serial = mp["ky_serial"]
+
+    ifmap_vol = lay["ifmap_words"]
+    ofmap = lay["ofmap_words"]
+    weights = lay["weight_words"]
+    macs = lay["macs"]
+    pool = lay["is_pool"] != 0
+    pool_ops = lay["c_ch"] * lay["ox"] * lay["oy"] * lay["kx"] * lay["ky"]
+
+    # ifmap: every word streams DRAM→GB once; resident planes are
+    # re-delivered GB→array for each of the n_m filter blocks.
+    ifmap_dram_reads = ifmap_vol * torch.ones_like(n_m)
+    ifmap_refetched = ifmap_vol * 0.0
+    gb_ifmap_writes = ifmap_dram_reads                 # DRAM → GB
+    gb_ifmap_reads = ifmap_vol * torch.where(lay["is_acc"] != 0, n_m, 1.0)
+
+    # weights stream from DRAM once and land in the PE RFs once per phase.
+    wt_dram_reads = weights
+    gb_wt_writes = weights
+    gb_wt_reads = weights * ky_serial
+
+    # psums of the in-flight filter block are read-modify-written on every
+    # accumulation round after the first; the slice exceeding GB_psum makes
+    # the round trip to DRAM (Observation 1).
+    inter_rounds = torch.clamp(n_c * ky_serial - 1, min=0.0)
+    overflow = torch.clamp(w_psum - cfg["gb_psum_words"], min=0.0)
+    held = torch.minimum(w_psum,
+                         cfg["gb_psum_words"] * torch.ones_like(w_psum))
+    psum_dram_writes = inter_rounds * overflow
+    psum_dram_reads = psum_dram_writes
+    psum_gb_inter = inter_rounds * held
+    gb_psum_writes = psum_gb_inter + ofmap             # + final results
+    gb_psum_reads = psum_gb_inter + ofmap              # reload + writeback
+    ofmap_dram_writes = ofmap
+
+    dram_reads = ifmap_dram_reads + wt_dram_reads + psum_dram_reads
+    dram_writes = ofmap_dram_writes + psum_dram_writes
+    gb_reads = gb_ifmap_reads + gb_wt_reads + gb_psum_reads
+    gb_writes = gb_ifmap_writes + gb_wt_writes + gb_psum_writes
+
+    words_into_array = gb_ifmap_reads + gb_wt_reads + psum_gb_inter + psum_dram_reads
+    words_out_of_array = gb_psum_writes + psum_dram_writes
+
+    ops = torch.where(pool, pool_ops, macs)
+    rf_accesses = (4.0 * ops) + words_into_array + words_out_of_array
+
+    return dict(
+        mp=mp, ops=ops, macs=macs, pool_ops=pool_ops,
+        dram_reads=dram_reads, dram_writes=dram_writes,
+        gb_ifmap_reads=gb_ifmap_reads, gb_ifmap_writes=gb_ifmap_writes,
+        gb_wt_reads=gb_wt_reads, gb_wt_writes=gb_wt_writes,
+        gb_psum_reads=gb_psum_reads, gb_psum_writes=gb_psum_writes,
+        gb_reads=gb_reads, gb_writes=gb_writes,
+        rf_accesses=rf_accesses,
+        words_into_array=words_into_array,
+        words_out_of_array=words_out_of_array,
+        psum_spilled=psum_dram_writes + psum_dram_reads,
+        ifmap_refetched=ifmap_refetched,
+    )
+
+
+def _energy_latency(cfg: Dict[str, Any], lay: Dict[str, Any],
+                    ct: Dict[str, Any]) -> Dict[str, Any]:
+    e = cfg  # per-access constants pre-flattened into the cfg dict
+    mp = ct["mp"]
+
+    gb_e_if, gb_e_ps, gb_e_wt = e["gb_e_ifmap"], e["gb_e_psum"], e["gb_e_wt"]
+    mac_e = torch.where(lay["is_pool"] != 0, e["e_mac"] * _POOL_OP_ENERGY,
+                        e["e_mac"])
+
+    noc_hops = (cfg["rows"] + cfg["cols"]) / 2.0
+    # idle PEs still burn clock/leakage power for the whole layer occupancy
+    idle_cycles = (cfg["rows"] * cfg["cols"] - mp["active_pes"]) \
+        * ct["ops"] / mp["active_pes"]
+    energy = (
+        ct["dram_reads"] * e["e_dram_r"] + ct["dram_writes"] * e["e_dram_w"]
+        + (ct["gb_ifmap_reads"] + ct["gb_ifmap_writes"]) * gb_e_if
+        + (ct["gb_psum_reads"] + ct["gb_psum_writes"]) * gb_e_ps
+        + (ct["gb_wt_reads"] + ct["gb_wt_writes"]) * gb_e_wt
+        + ct["rf_accesses"] * e["e_rf"]
+        + ct["ops"] * mac_e
+        + idle_cycles * e["e_pe_idle"]
+        + (ct["words_into_array"] + ct["words_out_of_array"])
+        * e["e_noc_hop"] * noc_hops
+    )
+
+    # GB→array delivery is paced by the NoC and by the access time of the
+    # partition it drains (bigger buffer ⇒ slower access, Fig. 9).
+    lat_if = e["gb_t_ifmap"] / e["gb_t_base"]
+    lat_ps = e["gb_t_psum"] / e["gb_t_base"]
+    delivery_cy = (
+        (ct["gb_ifmap_reads"] + ct["gb_wt_reads"]) * lat_if
+        + (ct["gb_psum_reads"]) * lat_ps
+    ) / e["noc_wpc"]
+    writeback_cy = ct["words_out_of_array"] * lat_ps / e["noc_wpc"]
+    compute_cy = ct["ops"] / mp["active_pes"] * e["mac_t_cy"]
+    array_cy = delivery_cy + compute_cy + writeback_cy
+
+    dram_words = ct["dram_reads"] + ct["dram_writes"]
+    dram_cy = dram_words / e["dram_wpc"]
+
+    array_time = array_cy * e["cycle_ns"]
+    mem_time = dram_cy * e["cycle_ns"] + (delivery_cy + writeback_cy) * e["cycle_ns"]
+    latency = (array_cy + dram_cy) * e["cycle_ns"]
+
+    total_pes = cfg["rows"] * cfg["cols"]
+    utilization = torch.where(
+        array_cy > 0, (compute_cy / torch.clamp(array_cy, min=1e-30))
+        * mp["active_pes"] / total_pes, 0.0)
+
+    return dict(energy=energy, latency=latency, array_time=array_time,
+                mem_time=mem_time, utilization=utilization)
+
+
+def _cfg_struct(cfg: AcceleratorConfig, device) -> Dict[str, torch.Tensor]:
+    """One config as 0-d float64 tensors on ``device``."""
+    et = cfg.energy
+    vals = dict(
+        rows=cfg.array_rows, cols=cfg.array_cols,
+        gb_ifmap_words=cfg.gb_ifmap_words(),
+        gb_psum_words=cfg.gb_psum_words(),
+        rf_ifmap_words=cfg.rf_ifmap_words,
+        rf_weight_words=cfg.rf_weight_words,
+        rf_psum_words=cfg.rf_psum_words,
+        e_rf=et.rf_read,
+        e_dram_r=et.dram_read, e_dram_w=et.dram_write,
+        e_mac=et.mac, e_noc_hop=et.noc_hop,
+        e_pe_idle=et.pe_idle,
+        gb_e_ifmap=et.gb_energy(cfg.gb_ifmap_kb),
+        gb_e_psum=et.gb_energy(cfg.gb_psum_kb),
+        gb_e_wt=et.gb_energy(cfg.gb_weight_kb),
+        gb_t_ifmap=et.gb_latency(cfg.gb_ifmap_kb),
+        gb_t_psum=et.gb_latency(cfg.gb_psum_kb),
+        gb_t_base=et.gb_t,
+        noc_wpc=cfg.noc_words_per_cycle,
+        dram_wpc=cfg.dram_words_per_cycle,
+        mac_t_cy=et.mac_t / cfg.cycle_ns,
+        cycle_ns=cfg.cycle_ns,
+    )
+    return {k: torch.tensor(float(v), dtype=_F64, device=device)
+            for k, v in vals.items()}
+
+
+# ---------------------------------------------------------------------------
+# Devices and backends.
+# ---------------------------------------------------------------------------
+
+#: Selectable heavy-stage backends: the hand-written CUDA kernels, and the
+#: same arithmetic as plain torch operations.
+BACKENDS = ("cuda", "torch")
+
+_LAST_BACKEND: str | None = None
+
+
+def last_backend() -> str | None:
+    """Backend the most recent engine call ran its heavy stage on
+    (``"cuda" | "torch"``) — ``None`` before the first call."""
+    return _LAST_BACKEND
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` → the card.  A CUDA device without a card raises: the
+    engine never moves to the CPU unless the caller asks for it."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device=\"cpu\" to run the "
+            "port's plain torch path on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"device must be a CUDA device or the CPU, got {dev}")
+    return dev
+
+
+def resolve_backend(backend: str | None, device: torch.device) -> str:
+    """``None`` → ``"cuda"`` on a CUDA device, ``"torch"`` on the CPU.
+    ``"cuda"`` on the CPU raises; there is no fallback."""
+    if backend is None:
+        return "cuda" if device.type == "cuda" else "torch"
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, "
+                         f"got {backend!r}")
+    if backend == "cuda" and device.type != "cuda":
+        raise ValueError(
+            f"backend='cuda' runs the hand-written kernels and needs a CUDA "
+            f"device, got device={str(device)!r}; use backend='torch' on "
+            f"the CPU")
+    return backend
+
+
+def simulate_network(cfg: AcceleratorConfig, layers: Sequence[Layer],
+                     name: str = "net", *, device=None) -> NetworkReport:
+    """Scalar (per-network, per-config) entry point → full layer reports.
+
+    The per-layer model runs in torch on ``device``; the report totals are
+    summed on the host in numpy's order, as the reference sums them."""
+    dev = resolve_device(device)
+    compute = [l for l in layers if l.kind != "input"]
+    lay = rs_mapping.layer_struct(compute, device=dev)
+    cfgs = _cfg_struct(cfg, dev)
+
+    ct = _counts(cfgs, lay)
+    el = _energy_latency(cfgs, lay, ct)
+    h = {k: v.cpu().numpy() for k, v in (
+        ("energy", el["energy"]), ("latency", el["latency"]),
+        ("macs", lay["macs"]), ("dram_reads", ct["dram_reads"]),
+        ("dram_writes", ct["dram_writes"]), ("gb_reads", ct["gb_reads"]),
+        ("gb_writes", ct["gb_writes"]), ("rf_accesses", ct["rf_accesses"]),
+        ("utilization", el["utilization"]), ("mem_time", el["mem_time"]),
+        ("array_time", el["array_time"]),
+        ("psum_spilled", ct["psum_spilled"]),
+        ("ifmap_refetched", ct["ifmap_refetched"]))}
+
+    reports = [LayerReport(name=l.name, **{k: float(v[i])
+                                           for k, v in h.items()})
+               for i, l in enumerate(compute)]
+    return NetworkReport(
+        name=name,
+        energy=float(h["energy"].sum()),
+        latency=float(h["latency"].sum()),
+        layers=reports)
+
+
+# ---------------------------------------------------------------------------
+# Batched design-space engine.
+#
+# * Count dedup — the RS mapping and access counts depend on a config only
+#   through (array, GB words, RF words), so the grid is deduplicated on
+#   those columns (5,400 extended-space points → 1,800 count-unique rows)
+#   and the heavy (unique × layers) stage runs once per unique row.
+# * Early layer reduction — energy and latency are linear in the 14
+#   per-layer count terms with config-only coefficients, so the layer axis
+#   is summed per network before the coefficients are applied.
+# ---------------------------------------------------------------------------
+
+_LAYER_BUCKET = 256
+
+
+def _cfg_struct_from_grid(grid) -> Dict[str, np.ndarray]:
+    """Vectorised twin of :func:`_cfg_struct` on the host: the per-access
+    model columns for every grid point (numpy float64, shape [n]).  Accepts
+    a ConfigGrid or a bare column dict (the chunked path slices columns)."""
+    fields = grid.fields if isinstance(grid, ConfigGrid) else grid
+    f = {k: np.asarray(v, dtype=np.float64) for k, v in fields.items()}
+    bpw = f["bitwidth"] / 8.0
+    ref = f["gb_ref_kb"]
+
+    def gb_e(kb):
+        return f["gb_e_ref"] * np.sqrt(np.maximum(kb, 1.0) / ref)
+
+    def gb_t(kb):
+        return f["gb_t_ref"] * np.sqrt(np.sqrt(np.maximum(kb, 1.0) / ref))
+
+    return dict(
+        rows=f["rows"], cols=f["cols"],
+        gb_ifmap_words=np.floor(f["gb_ifmap_kb"] * 1024 / bpw),
+        gb_psum_words=np.floor(f["gb_psum_kb"] * 1024 / bpw),
+        rf_ifmap_words=f["rf_ifmap_words"],
+        rf_weight_words=f["rf_weight_words"],
+        rf_psum_words=f["rf_psum_words"],
+        e_rf=f["e_rf"], e_dram_r=f["e_dram_r"], e_dram_w=f["e_dram_w"],
+        e_mac=f["e_mac"], e_noc_hop=f["e_noc_hop"], e_pe_idle=f["e_pe_idle"],
+        gb_e_ifmap=gb_e(f["gb_ifmap_kb"]),
+        gb_e_psum=gb_e(f["gb_psum_kb"]),
+        gb_e_wt=gb_e(f["gb_weight_kb"]),
+        gb_t_ifmap=gb_t(f["gb_ifmap_kb"]),
+        gb_t_psum=gb_t(f["gb_psum_kb"]),
+        gb_t_base=f["gb_t_ref"],
+        noc_wpc=f["noc_wpc"], dram_wpc=f["dram_wpc"],
+        mac_t_cy=f["mac_t"] / f["cycle_ns"], cycle_ns=f["cycle_ns"],
+    )
+
+
+# A benign do-nothing layer: unit shapes keep every mapping quantity ≥ 1
+# (no division hazards) while zero macs/words make all 14 count terms, and
+# so its energy and latency, exactly 0.0.
+_PAD_LAYER_ROW = dict(
+    c_ch=1.0, m=1.0, ky=1.0, kx=1.0, stride=1.0, ix=1.0, iy=1.0,
+    oy=1.0, ox=1.0, macs=0.0, weight_words=0.0, ifmap_words=0.0,
+    ofmap_words=0.0, is_acc=1.0, is_dw=0.0, is_pool=0.0)
+
+
+def _bucketed(n: int, bucket: int) -> int:
+    return max(bucket, -(-n // bucket) * bucket)
+
+
+#: Layer-struct columns that must be ≥ 1 — shapes/strides act as tile
+#: divisors in the RS mapping — vs. counts that only need to be ≥ 0.
+_LAYER_DIM_COLUMNS = ("c_ch", "m", "ky", "kx", "stride", "ix", "iy",
+                      "oy", "ox")
+
+
+def _validate_layer_struct(name: str, struct: Dict[str, np.ndarray]):
+    """Reject NaN/inf/non-positive layer parameters at the engine boundary,
+    naming the network, layer index and field."""
+    for k, v in struct.items():
+        bad = ~np.isfinite(v)
+        if bad.any():
+            i = int(np.argmax(bad))
+            raise ValueError(
+                f"network {name!r}: layer {i} field {k!r} is non-finite "
+                f"({v[i]!r})")
+        floor = 1 if k in _LAYER_DIM_COLUMNS else 0
+        bad = v < floor
+        if bad.any():
+            i = int(np.argmax(bad))
+            raise ValueError(
+                f"network {name!r}: layer {i} field {k!r} must be >= "
+                f"{floor}, got {v[i]!r}")
+
+
+def _stack_networks(networks: Mapping[str, Sequence[Layer]],
+                    bucket: int = _LAYER_BUCKET,
+                    absorb_pad: bool = True):
+    """Concatenate all networks' compute layers along one padded axis.
+
+    Returns ``(lay, segments)``: ``lay`` values are numpy float64 [L_pad]
+    and ``segments`` a tuple of per-network (start, stop) on that axis.
+    With ``absorb_pad`` the LAST segment extends to L_pad — pad layers
+    contribute exactly zero (see ``_PAD_LAYER_ROW``), so the aggregate
+    kernel may sum them into the last network.  The per-layer path passes
+    ``absorb_pad=False``: it needs the true per-network lengths to size the
+    padded ``n_layer`` output axis.
+    """
+    if not networks:
+        raise ValueError("evaluate_networks needs at least one network")
+    structs = []
+    seg_lens = []
+    for name, layers in networks.items():
+        compute = [l for l in layers if l.kind != "input"]
+        s = {k: v.numpy() for k, v in
+             rs_mapping.layer_struct(compute, device="cpu").items()}
+        _validate_layer_struct(name, s)
+        structs.append(s)
+        seg_lens.append(len(compute))
+    total = int(np.sum(seg_lens))
+    l_pad = _bucketed(total, bucket)
+
+    lay = {}
+    for k in structs[0]:
+        col = np.full(l_pad, _PAD_LAYER_ROW[k], dtype=np.float64)
+        col[:total] = np.concatenate([s[k] for s in structs])
+        lay[k] = col
+    offs = np.concatenate([[0], np.cumsum(seg_lens)]).astype(int)
+    if absorb_pad:
+        offs[-1] = l_pad                    # zero-energy pad → last segment
+    segments = tuple((int(a), int(b)) for a, b in zip(offs[:-1], offs[1:]))
+    return lay, segments
+
+
+def network_layer_counts(networks: Mapping[str, Sequence[Layer]]
+                         ) -> np.ndarray:
+    """Per-network compute-layer counts, ordered like ``networks`` — the
+    valid lengths of the per-layer path's padded ``n_layer`` axis."""
+    return np.array([sum(1 for l in layers if l.kind != "input")
+                     for layers in networks.values()], dtype=np.int64)
+
+
+#: Config columns the RS mapping / access counts depend on, in the row
+#: order of the CUDA kernels' config operand.  Everything else only scales
+#: the counts linearly and is applied after the layer reduction.
+_COUNT_COLUMNS = ("rows", "cols", "gb_ifmap_words", "gb_psum_words",
+                  "rf_ifmap_words", "rf_weight_words", "rf_psum_words")
+
+#: Subset of _COUNT_COLUMNS the RS mapping itself depends on — GB_psum only
+#: enters the spill accounting in `_counts`, never the mapping.
+_MAPPING_COLUMNS = ("rows", "cols", "gb_ifmap_words",
+                    "rf_ifmap_words", "rf_weight_words", "rf_psum_words")
+
+#: Mapping outputs `_counts` / `_count_terms` consume (gathered back to the
+#: count-unique axis after the mapping-unique evaluation).
+_MAPPING_KEYS = ("n_c", "n_m", "n_oy", "w_psum", "ky_serial", "active_pes")
+
+
+def _dedup_rows(cfgs: Dict[str, np.ndarray], columns):
+    """→ (unique column dict [n_u], inverse index [n]) over ``columns``."""
+    key = np.stack([cfgs[k] for k in columns], axis=1)
+    uniq, inv = np.unique(key, axis=0, return_inverse=True)
+    return dict(zip(columns, uniq.T.copy())), inv.reshape(-1).astype(np.int64)
+
+
+def _dedup_count_rows(cfgs: Dict[str, np.ndarray]):
+    return _dedup_rows(cfgs, _COUNT_COLUMNS)
+
+
+def _count_terms(cfg_u: Dict[str, Any], lay: Dict[str, Any],
+                 mp: Dict[str, Any] | None = None):
+    """The 14 per-layer count terms that energy/latency are linear in.
+
+    ``cfg_u`` holds the [n_u, 1] unique count columns; returns a tuple of
+    [n_u, L] (or [1, L] for the two config-independent terms) tensors.
+    """
+    ct = _counts(cfg_u, lay, mp)
+    active = ct["mp"]["active_pes"]
+    ops = ct["ops"]
+    pool = lay["is_pool"] != 0
+    return (
+        ct["dram_reads"],                                   # 0 e_dram_r
+        ct["dram_writes"],                                  # 1 e_dram_w
+        ct["gb_ifmap_reads"] + ct["gb_ifmap_writes"],       # 2 gb_e_ifmap
+        ct["gb_psum_reads"] + ct["gb_psum_writes"],         # 3 gb_e_psum
+        ct["gb_wt_reads"] + ct["gb_wt_writes"],             # 4 gb_e_wt
+        ct["rf_accesses"],                                  # 5 e_rf
+        torch.where(pool, 0.0, ct["macs"]),                 # 6 e_mac
+        torch.where(pool, ct["pool_ops"], 0.0),             # 7 e_mac·pool
+        (cfg_u["rows"] * cfg_u["cols"] - active) * ops / active,  # 8 idle
+        ct["words_into_array"] + ct["words_out_of_array"],  # 9 noc energy
+        ct["gb_ifmap_reads"] + ct["gb_wt_reads"],           # 10 delivery@if
+        ct["gb_psum_reads"],                                # 11 delivery@ps
+        ct["words_out_of_array"],                           # 12 writeback
+        ops / active,                                       # 13 compute cy
+    )
+
+
+def _combine_reduced(S, coefs: Dict[str, Any]):
+    """14 × [n_cfg, n_net] reduced sums × per-config coefficients →
+    (energy, latency), both [n_cfg, n_net].  Mirrors `_energy_latency`."""
+    C = {k: v[:, None] for k, v in coefs.items()}
+    (d_r, d_w, gb_if, gb_ps, gb_wt, rf, ops_mac, ops_pool, idle,
+     words_noc, dlv_if, dlv_ps, wout, ops_pe) = S
+    energy = (
+        d_r * C["e_dram_r"] + d_w * C["e_dram_w"]
+        + gb_if * C["gb_e_ifmap"] + gb_ps * C["gb_e_psum"]
+        + gb_wt * C["gb_e_wt"] + rf * C["e_rf"]
+        + ops_mac * C["e_mac"] + ops_pool * (C["e_mac"] * _POOL_OP_ENERGY)
+        + idle * C["e_pe_idle"]
+        + words_noc * C["e_noc_hop"] * C["noc_hops"])
+    lat_if = C["gb_t_ifmap"] / C["gb_t_base"]
+    lat_ps = C["gb_t_psum"] / C["gb_t_base"]
+    array_cy = ((dlv_if * lat_if + dlv_ps * lat_ps + wout * lat_ps)
+                / C["noc_wpc"] + ops_pe * C["mac_t_cy"])
+    dram_cy = (d_r + d_w) / C["dram_wpc"]
+    latency = (array_cy + dram_cy) * C["cycle_ns"]
+    return energy, latency
+
+
+def _coef_struct(cfgs: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    keys = ("e_dram_r", "e_dram_w", "gb_e_ifmap", "gb_e_psum", "gb_e_wt",
+            "e_rf", "e_mac", "e_pe_idle", "e_noc_hop", "gb_t_ifmap",
+            "gb_t_psum", "gb_t_base", "noc_wpc", "mac_t_cy", "dram_wpc",
+            "cycle_ns")
+    out = {k: cfgs[k] for k in keys}
+    out["noc_hops"] = (cfgs["rows"] + cfgs["cols"]) / 2.0
+    return out
+
+
+def _term_sums_body(segments, cfg_m, cfg_u, lay, inv_m):
+    """Mapping on the mapping-unique rows, counts on the count-unique rows,
+    per-network segment sums: tuple of [n_u, n_net] (or [1, n_net] for the
+    two config-independent terms).  The plain torch heavy stage."""
+    mp_m = _mapping(cfg_m, lay)
+    mp = {k: mp_m[k][inv_m] for k in _MAPPING_KEYS}
+    terms = _count_terms(cfg_u, lay, mp)
+    return tuple(
+        torch.stack([t[..., a:b].sum(-1) for a, b in segments], dim=-1)
+        for t in terms)
+
+
+def _gather_combine_body(S, inv, coefs):
+    """Gather the reduced sums back to the full config axis and apply the
+    per-config coefficients — the cheap [n_cfg, n_net] stage."""
+    gathered = []
+    for s in S:
+        if s.shape[0] == 1:                  # config-independent term
+            g = s.expand(inv.shape[0], s.shape[1])
+        else:
+            g = s[inv]
+        gathered.append(g)
+    return _combine_reduced(tuple(gathered), coefs)
+
+
+def _cuda_term_sums(segments, cfg_u, lay):
+    """The CUDA count-terms kernel: mapping + 14 terms + segment sums in
+    one launch on the count-unique rows (the mapping-level dedup is folded
+    into the kernel, which recomputes the mapping per row)."""
+    from ..kernels.count_terms import ops
+    return ops.count_term_sums(cfg_u, lay, segments)
+
+
+# ---------------------------------------------------------------------------
+# Per-layer path: the same heavy stage without the early segment reduction.
+# ---------------------------------------------------------------------------
+
+
+def _term_layers_body(cfg_m, cfg_u, lay, inv_m):
+    """Per-layer twin of :func:`_term_sums_body`: the raw 14 count terms,
+    each [n_u, L] ([1, L] for the config-independent two)."""
+    mp_m = _mapping(cfg_m, lay)
+    mp = {k: mp_m[k][inv_m] for k in _MAPPING_KEYS}
+    return _count_terms(cfg_u, lay, mp)
+
+
+def _cuda_term_layers(cfg_u, lay):
+    """The CUDA per-layer kernel: the [14, n_u, L] terms in one launch."""
+    from ..kernels.count_terms import ops
+    return ops.count_term_layers(cfg_u, lay)
+
+
+def _layer_axis_len(segments) -> int:
+    """Padded n_layer of the per-layer output: the longest segment."""
+    return max(b - a for a, b in segments)
+
+
+def _split_layers(arr, segments):
+    """[n, L_concat] → [n, n_net, n_layer]: slice each network's segment
+    off the concatenated axis and zero-pad to the longest one."""
+    n_layer = _layer_axis_len(segments)
+    outs = []
+    for a, b in segments:
+        seg = arr[:, a:b]
+        if b - a < n_layer:
+            seg = torch.nn.functional.pad(seg, (0, n_layer - (b - a)))
+        outs.append(seg)
+    return torch.stack(outs, dim=1)
+
+
+def _grid_kernel_body(segments, cfg_m, cfg_u, lay, inv_m, inv, coefs,
+                      backend: str, per_layer: bool = False):
+    """Heavy stage on ``backend``, then the coefficient combine.
+    ``per_layer=True`` skips the segment reduction: the combine runs on
+    the [*, L] terms and the outputs are re-split to [n, n_net, n_layer]."""
+    if per_layer:
+        if backend == "cuda":
+            S = _cuda_term_layers(cfg_u, lay)
+        else:
+            S = _term_layers_body(cfg_m, cfg_u, lay, inv_m)
+        e, t = _gather_combine_body(S, inv, coefs)
+        return _split_layers(e, segments), _split_layers(t, segments)
+    if backend == "cuda":
+        S = _cuda_term_sums(segments, cfg_u, lay)
+    else:
+        S = _term_sums_body(segments, cfg_m, cfg_u, lay, inv_m)
+    return _gather_combine_body(S, inv, coefs)
+
+
+def _prepare_fields(fields: Dict[str, np.ndarray], device: torch.device,
+                    backend: str):
+    """Grid columns → two-level-deduped kernel operands on ``device``.
+
+    The dedup runs on the host in numpy, as in the reference.  The CUDA
+    kernels recompute the mapping per count-unique row, so for them the
+    mapping-level operands are ``None`` and the second dedup is skipped."""
+    cfgs = _cfg_struct_from_grid(fields)
+    coefs = _coef_struct(cfgs)
+    cfg_u, inv = _dedup_count_rows(cfgs)            # counts level
+
+    def put(a):
+        return torch.as_tensor(a, dtype=_F64).to(device)
+
+    def put_idx(a):
+        return torch.as_tensor(a, dtype=torch.int64).to(device)
+
+    cfg_m = inv_m = None
+    if backend != "cuda":
+        cfg_m, inv_m = _dedup_rows(cfg_u, _MAPPING_COLUMNS)  # mapping lvl
+        cfg_m = {k: put(v)[:, None] for k, v in cfg_m.items()}
+        inv_m = put_idx(inv_m)
+    cfg_u = {k: put(v)[:, None] for k, v in cfg_u.items()}
+    coefs = {k: put(v) for k, v in coefs.items()}
+    return cfg_m, cfg_u, inv_m, put_idx(inv), coefs
+
+
+def _eval_fields(fields, lay, segments, backend: str, device: torch.device,
+                 per_layer: bool = False):
+    """Evaluate one batch of grid columns → (energy, latency) tensors on
+    ``device``: [n, n_net], or [n, n_net, n_layer] in per-layer mode."""
+    cfg_m, cfg_u, inv_m, inv, coefs = _prepare_fields(fields, device,
+                                                      backend)
+    return _grid_kernel_body(segments, cfg_m, cfg_u, lay, inv_m, inv, coefs,
+                             backend, per_layer)
+
+
+def _eval_chunked(fields, lay, segments, backend: str, device: torch.device,
+                  chunk_size: int, n: int, n_net: int,
+                  per_layer: bool = False):
+    """Chunked evaluation of the full grid → dense host outputs, so the
+    (unique-rows × layers) intermediates on the device stay bounded by the
+    chunk."""
+    shape = ((n, n_net, _layer_axis_len(segments)) if per_layer
+             else (n, n_net))
+    e = np.empty(shape)
+    t = np.empty(shape)
+    for start in range(0, n, chunk_size):
+        stop = min(start + chunk_size, n)
+        fc = {k: v[start:stop] for k, v in fields.items()}
+        ec, tc = _eval_fields(fc, lay, segments, backend, device, per_layer)
+        e[start:stop] = ec.cpu().numpy()
+        t[start:stop] = tc.cpu().numpy()
+    return e, t
+
+
+def evaluate_networks(grid: ConfigGrid,
+                      networks: Mapping[str, Sequence[Layer]],
+                      *,
+                      device=None,
+                      backend: str | None = None,
+                      chunk_size: int | None = None,
+                      per_layer: bool = False,
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """Evaluate every network against every grid point.
+
+    Returns ``(energy, latency)`` float64 numpy arrays of shape
+    ``[grid.n, len(networks)]``, columns ordered like ``networks``.
+    ``device`` is where the heavy stage runs (default: the card; raises
+    without one).  ``backend`` selects the heavy stage: ``"cuda"`` (the
+    hand-written kernels) or ``"torch"`` (plain torch operations); the
+    default is ``"cuda"`` on a CUDA device and ``"torch"`` on the CPU.
+    ``chunk_size`` evaluates the grid in chunks of that many points so the
+    device intermediates stay bounded.
+
+    ``per_layer=True`` keeps the layer axis: the outputs become
+    ``[grid.n, len(networks), n_layer]`` where ``n_layer`` is the longest
+    network's compute-layer count (shorter networks zero-padded — see
+    :func:`network_layer_counts` for the valid lengths).
+    """
+    global _LAST_BACKEND
+    dev = resolve_device(device)
+    backend = resolve_backend(backend, dev)
+    lay_np, segments = _stack_networks(networks, absorb_pad=not per_layer)
+    lay = {k: torch.as_tensor(v, dtype=_F64).to(dev)[None, :]
+           for k, v in lay_np.items()}
+    fields = grid.fields if isinstance(grid, ConfigGrid) else dict(grid)
+    n = int(next(iter(fields.values())).shape[0])
+
+    if chunk_size is not None and n > chunk_size:
+        out = _eval_chunked(fields, lay, segments, backend, dev,
+                            chunk_size, n, len(networks),
+                            per_layer=per_layer)
+    else:
+        e, t = _eval_fields(fields, lay, segments, backend, dev,
+                            per_layer=per_layer)
+        out = e.cpu().numpy(), t.cpu().numpy()
+    _LAST_BACKEND = backend
+    return out
+
+
+def simulate_grid(configs: Sequence[AcceleratorConfig] | ConfigGrid,
+                  layers: Sequence[Layer], *, device=None,
+                  backend: str | None = None):
+    """Vectorised sweep of one network: (energy, latency) arrays [n_cfg]."""
+    grid = (configs if isinstance(configs, ConfigGrid)
+            else ConfigGrid.from_configs(configs))
+    e, t = evaluate_networks(grid, {"net": layers}, device=device,
+                             backend=backend)
+    return e[:, 0], t[:, 0]

@@ -1,0 +1,159 @@
+"""The port stands alone: ``repro_torch`` imports with JAX absent and loads
+nothing of the ``repro`` package, and no code path moves to the CPU or to
+a plain version when the card or a kernel is missing."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.core import accelerator, dse, energymodel, topology
+from repro_torch.kernels.count_terms import ops
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "src" / "repro_torch"
+PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _modules():
+    return sorted(
+        ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+        .removesuffix(".__init__") for p in PKG.rglob("*.py"))
+
+
+def test_imports_without_jax_and_without_repro():
+    code = (
+        "import importlib, json, sys\n"
+        "sys.modules['jax'] = None\n"          # any `import jax` now raises
+        f"mods = {_modules()!r}\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(k for k in sys.modules\n"
+        "      if k == 'repro' or k.startswith(('repro.', 'jax')))))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=ROOT, timeout=120,
+                          env=dict(os.environ,
+                                   PYTHONPATH=str(ROOT / "src")))
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.splitlines()[-1]) == ["jax"]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_jax_or_repro_imports(path):
+    bad = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad += [n for n in names
+                if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_a_card(no_card):
+    grid = accelerator.ConfigGrid.product()
+    nets = {"AlexNet": topology.get_network("AlexNet")}
+    for call in (lambda: energymodel.evaluate_networks(grid, nets),
+                 lambda: energymodel.evaluate_networks(grid, nets,
+                                                       device="cuda"),
+                 lambda: energymodel.simulate_network(
+                     accelerator.AcceleratorConfig(), nets["AlexNet"]),
+                 lambda: dse.sweep_networks(nets),
+                 lambda: dse.layer_metrics(nets)):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+
+
+def test_cuda_backend_on_cpu_raises():
+    grid = accelerator.ConfigGrid.product()
+    nets = {"AlexNet": topology.get_network("AlexNet")}
+    before = energymodel.last_backend()
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        energymodel.evaluate_networks(grid, nets, device="cpu",
+                                      backend="cuda")
+    assert energymodel.last_backend() == before
+
+
+def test_missing_kernel_raises_instead_of_falling_back(monkeypatch):
+    """A CUDA operand whose kernel cannot be built raises out of the
+    wrapper; nothing retries on the plain version."""
+    grid = accelerator.ConfigGrid.product()
+    lay, segments = energymodel._stack_networks(
+        {"AlexNet": topology.get_network("AlexNet")})
+    lay = {k: torch.as_tensor(v)[None, :] for k, v in lay.items()}
+    _, cfg_u, _, _, _ = energymodel._prepare_fields(
+        grid.fields, torch.device("cpu"), "cuda")
+
+    def not_built():
+        raise RuntimeError("nvcc failed")
+
+    monkeypatch.setattr(ops, "_device_of",
+                        lambda *a: torch.device("cuda"))
+    monkeypatch.setattr(ops, "_lib", not_built)
+    ops.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        ops.count_term_sums(cfg_u, lay, segments)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        ops.count_term_layers(cfg_u, lay)
+    assert ops.launch_counts() == {"count_terms": 0, "count_layers": 0}
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(ops.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(ops, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        ops.build()
+
+
+def test_wrappers_reject_other_devices():
+    cfg_u = {k: torch.ones(3, 1, dtype=torch.float64, device="meta")
+             for k in ops.CFG_COLUMNS}
+    lay = {k: torch.ones(1, 4, dtype=torch.float64, device="meta")
+           for k in ops.LAYER_FIELDS}
+    with pytest.raises(ValueError, match="CPU or a CUDA device"):
+        ops.count_term_layers(cfg_u, lay)
+    mixed = dict(cfg_u, rows=torch.ones(3, 1, dtype=torch.float64))
+    with pytest.raises(ValueError, match="several devices"):
+        ops.count_term_sums(mixed, lay, ((0, 4),))
+
+
+def test_build_key_follows_source(monkeypatch, tmp_path):
+    """The library is keyed by a hash of the source and the flags, so an
+    edited source never loads a stale build."""
+    src = tmp_path / "k.cu"
+    src.write_text("// a")
+    monkeypatch.setattr(ops, "SOURCE", src)
+    monkeypatch.setattr(ops, "BUILD_DIR", tmp_path / "build")
+    seen = []
+
+    def fake_run(cmd, **kw):
+        out = Path(cmd[cmd.index("-o") + 1])
+        out.write_text("lib")
+        seen.append(cmd)
+        return subprocess.CompletedProcess(cmd, 0, "", "ptxas info")
+
+    monkeypatch.setattr(ops, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(ops.subprocess, "run", fake_run)
+    lib_a, log_a = ops.build()
+    assert log_a == "ptxas info" and lib_a.is_file()
+    assert ops.build() == (lib_a, "")           # cached: no second compile
+    src.write_text("// b")
+    lib_b, _ = ops.build()
+    assert lib_b != lib_a and len(seen) == 2
+    assert "--fmad=false" in seen[0] and "arch=compute_90a,code=sm_90a" in \
+        seen[0]
+    assert not list((tmp_path / "build").rglob("*.tmp"))
