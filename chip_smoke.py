@@ -5,21 +5,32 @@
 
 Phases, each fatal on any error:
 
-1. build the count-terms kernels from ``src/repro_torch/csrc`` with nvcc;
-2. hold each kernel against its plain torch version on the card, on the
-   operands the engine gives it at ``extended_grid()`` and ``mega_grid()``
-   x 18 networks (max relative error <= 1e-12, atol 0, zeros exact);
-3. drive the main path through the port's entry points — the batched
-   engine (aggregate, per-layer, chunked mega), the quickstart steps and
-   the §IV.A chip — with the launch counts set to 0 just before and read
-   just after; then check its outputs against the plain path on the card
-   and, for the quickstart and the chip, against a CPU run;
-4. time each kernel and its plain version with CUDA events, and the
-   engine end to end, and print the ``kernels`` lines.
+1. build every CUDA kernel of the port from ``src/repro_torch/csrc`` with
+   nvcc, one compiler per source, all at once; print registers and spills;
+2. DSE: hold the count-terms kernels against their plain torch versions at
+   ``extended_grid()`` and ``mega_grid()`` x 18 networks (max relative
+   error <= 1e-12, atol 0, zeros exact); drive the DSE path (the batched
+   engine, the quickstart steps, the §IV.A chip) with the launch counts
+   set to 0 just before and read just after, and check its outputs
+   against the plain path on the card and against a CPU run;
+3. LM kernels: hold flash attention and RMSNorm against their plain
+   versions on the card (f32 2e-5, bf16 2e-2) at the serve path's decode
+   shapes and the prefill shapes;
+4. serve qwen2-0.5b at full width through ``ServeEngine`` (8 requests,
+   4 slots, random bf16 weights from a seed) on the kernels, with the
+   counts set to 0 just before and read just after, then on the plain
+   versions; replay the kernel run's inputs through the plain decode step
+   and hold every step's logits to bf16 tolerance;
+5. the prefill forward at full width (B 2, T 2048) on both backends;
+6. time each kernel, its plain version and its library call, the serve
+   runs and the forward with CUDA events; trace a decode step and the
+   forward with torch.profiler (device busy share, kernel launches, the
+   largest kernels and host ops); print the ``kernels`` lines.
 
-The last line of standard output is ``{"ok": true, "device": {...}}``.
-Without a card, or away from the repository, it exits non-zero before
-printing any result.
+Float32 matrix products run in full float32: TF32 is switched off for
+matmuls and cuDNN.  The last line of standard output is
+``{"ok": true, "device": {...}}``.  Without a card, or away from the
+repository, it exits non-zero before printing any result.
 """
 
 from __future__ import annotations
@@ -35,14 +46,33 @@ RTOL = 1e-12
 REPS = 10
 
 # NVIDIA H100 SXM data sheet: 3.35 TB/s HBM3, 34 TFLOP/s FP64 outside the
-# tensor cores (the count-terms arithmetic is scalar FP64).
+# tensor cores (the count-terms arithmetic is scalar FP64), 989 TFLOP/s
+# bf16 and 67 TFLOP/s fp32 (CUDA cores) dense.
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOPS = 34e12
+BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
+
+#: Kernel tolerances of the LM kernels (``tests/test_kernels.py:18-20``).
+LM_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 REPLACES = {
     "count_terms": "src/repro/kernels/count_terms/kernel.py:99",
     "count_layers": "src/repro/kernels/count_terms/kernel.py:146",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:110",
+    "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:29",
 }
+SOURCES = {
+    "count_terms": "src/repro_torch/csrc/count_terms.cu",
+    "count_layers": "src/repro_torch/csrc/count_terms.cu",
+    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "rmsnorm": "src/repro_torch/csrc/rmsnorm.cu",
+}
+
+# serve run: qwen2-0.5b at full width
+SLOTS, N_REQUESTS, NEW_TOKENS, MAX_SEQ = 4, 8, 16, 1024
+PROMPT_LEN = (16, 65)          # numpy integers(16, 65): 16..64 tokens
+PREFILL_B, PREFILL_T = 2, 2048
 
 
 def fail(msg: str) -> None:
@@ -83,6 +113,53 @@ def wall_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
+def bound(n_bytes: float, ops: float, peak: float) -> tuple:
+    """(bound ms, "bytes" | "operations"): the larger of bytes over the HBM
+    rate and operations over ``peak``."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def profile_ms(fn, steps: int) -> dict:
+    """Trace ``steps`` calls of fn with torch.profiler → wall ms per call,
+    device kernel ms per call (kernels on one stream do not overlap, so
+    their sum over the wall time is the device's busy share), kernel
+    launches per call, and the largest device kernels and host ops."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    events = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy = sum(dev_us(e) for e in kernels) / 1e3 / steps
+    top_dev = sorted(kernels, key=dev_us, reverse=True)[:6]
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    top_host = sorted(host, key=lambda e: e.self_cpu_time_total,
+                      reverse=True)[:8]
+    return dict(
+        wall_ms=wall, device_ms=busy, busy_share=busy / wall,
+        kernel_launches=sum(e.count for e in kernels) / steps,
+        top_device=[(e.key[:60], dev_us(e) / 1e3 / steps, e.count // steps)
+                    for e in top_dev],
+        top_host=[(e.key[:40], e.self_cpu_time_total / 1e3 / steps,
+                   e.count // steps) for e in top_host])
+
+
 def ops_per_pair() -> float:
     """Elementwise operations of the plain count-terms program for one
     (config row, layer) pair, counted on a small CPU input: every aten op
@@ -118,41 +195,41 @@ def ops_per_pair() -> float:
     return float(count[0])
 
 
-def main() -> None:
-    try:
-        import torch
-    except ImportError:
-        fail("torch is not installed")
-    if not torch.cuda.is_available():
-        fail("no CUDA device is available")
-    src = Path(__file__).resolve().parent / "src"
-    if not (src / "repro_torch").is_dir():
-        fail(f"{src / 'repro_torch'} not found: run from a checkout of the "
-             f"repository")
-    sys.path.insert(0, str(src))
+# ---------------------------------------------------------------------------
+# 1. build
+# ---------------------------------------------------------------------------
+
+def build_all() -> None:
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.count_terms import ops as ct_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+
+    wrappers = (ct_ops, fa_ops, rms_ops)
+    t0 = time.perf_counter()
+    built = _build.build_many([(w.SOURCE, w.NVCC_FLAGS) for w in wrappers])
+    for w in wrappers:
+        w._lib()
+    log(f"[1] built {len(built)} libraries in "
+        f"{time.perf_counter() - t0:.1f} s (one nvcc per source, in parallel)")
+    for source, (lib, build_log) in built.items():
+        log(f"    {Path(source).name} -> {lib.parent.name}/{lib.name}")
+        for line in build_log.splitlines():
+            if any(w in line for w in ("Compiling entry", "registers",
+                                       "spill", "error")):
+                log(f"      {line.strip()}")
+
+
+# ---------------------------------------------------------------------------
+# 2. DSE path: the count-terms kernels
+# ---------------------------------------------------------------------------
+
+def dse_path(dev, card) -> list:
     import numpy as np
+    import torch
     from repro_torch.core import (accelerator, dse, energymodel as em,
                                   hetero, partition, topology)
     from repro_torch.kernels.count_terms import ops, ref
-
-    dev = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()
-    card = smi[0] if smi else "nvidia-smi gave nothing"
-    log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
-        f"card {torch.cuda.get_device_name(0)} ({card})")
-
-    # ---- 1. build ------------------------------------------------------------
-    t0 = time.perf_counter()
-    lib_path, build_log = ops.build()
-    ops._lib()
-    log(f"[1] built {lib_path.name} in {time.perf_counter() - t0:.1f} s")
-    for line in build_log.splitlines():
-        if any(w in line for w in ("entry function", "registers", "spill",
-                                   "error")):
-            log(f"    {line.strip()}")
 
     nets = {n: topology.get_network(n) for n in topology.NETWORKS}
     grids = {"extended": accelerator.extended_grid(),
@@ -171,7 +248,7 @@ def main() -> None:
                          lambda c: ref.count_term_layers_ref(c, lay)),
     }
 
-    # ---- 2. kernels against their plain versions on the card --------------
+    # kernels against their plain versions on the card
     per_grid = {k: {} for k in kernels}
     for gname, grid in grids.items():
         cfg_u = operands(grid.fields)
@@ -196,7 +273,7 @@ def main() -> None:
             del out, want, diff
             torch.cuda.empty_cache()
 
-    # ---- 3. main path --------------------------------------------------------
+    # the DSE path, with the counts set to 0 just before and read just after
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     e_ext, t_ext = em.evaluate_networks(grids["extended"], nets)
@@ -215,12 +292,12 @@ def main() -> None:
     sav = hetero.savings_summary(chip)
     launches = ops.launch_counts()
     backend = em.last_backend()
-    log(f"[3] main path in {time.perf_counter() - t0:.1f} s: backend "
+    log(f"[2] DSE path in {time.perf_counter() - t0:.1f} s: backend "
         f"{backend}, launches {launches}")
     if backend != "cuda":
-        fail(f"main path ran on backend {backend!r}")
+        fail(f"DSE path ran on backend {backend!r}")
     if not all(launches[k] > 0 for k in kernels):
-        fail(f"a kernel of the main path was never launched: {launches}")
+        fail(f"a kernel of the DSE path was never launched: {launches}")
 
     n_e, n_m = grids["extended"].n, grids["mega"].n
     n_layer = int(em.network_layer_counts(nets).max())
@@ -242,7 +319,7 @@ def main() -> None:
                                         device=dev, backend="torch")
     np.testing.assert_allclose(e_mega[sub], e_sub, rtol=RTOL, atol=0)
     np.testing.assert_allclose(t_mega[sub], t_sub, rtol=RTOL, atol=0)
-    log("[3] engine outputs finite, of the expected shapes, per-layer sums "
+    log("[2] engine outputs finite, of the expected shapes, per-layer sums "
         "= aggregate, cuda = plain torch on the card (rtol 1e-12)")
 
     report_cpu = em.simulate_network(cfg, nets["ResNet50"], "ResNet50",
@@ -251,7 +328,7 @@ def main() -> None:
                                report_cpu.layer_latencies, rtol=RTOL)
     if partition.partition_network(report_cpu, 3) != part:
         fail("Algorithm II split differs between the card and the CPU")
-    log(f"[3] quickstart: ResNet50 {cfg.label()} energy {report.energy:.6e} "
+    log(f"[2] quickstart: ResNet50 {cfg.label()} energy {report.energy:.6e} "
         f"pJ latency {report.latency:.6e} ns; DSE min "
         f"{sweep.cell_label(sweep.argmin_cell('edp'))}, {len(boundary)} "
         f"configs within 5%, EDP spread mean +{spread[0]:.0f}% max "
@@ -267,13 +344,13 @@ def main() -> None:
              f"{chip_cpu.assignment}")
     es = [v["energy_saved"] for v in sav.values()]
     ed = [v["edp_saved"] for v in sav.values()]
-    log(f"[3] §IV.A chip (same on card and CPU): "
+    log(f"[2] §IV.A chip (same on card and CPU): "
         f"{[chip.core_label(i) for i in range(len(chip.core_types))]}; "
         f"savings vs worst single core: energy up to {max(es):.1f}% "
         f"(mean {np.mean(es):.1f}%), EDP up to {max(ed):.1f}% "
         f"(mean {np.mean(ed):.1f}%)  [paper: up to 36% / 67%]")
 
-    # ---- 4. times --------------------------------------------------------------
+    # times
     flops_pair = ops_per_pair()
     for gname, grid in grids.items():
         cfg_u = operands(grid.fields)
@@ -286,17 +363,14 @@ def main() -> None:
             else:
                 out_bytes = 14 * n_u * n_l * 8
                 flops = flops_pair * n_u * n_l
-            t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / FP64_FLOPS * 1e3
+            b_ms, b_by = bound(in_bytes + out_bytes, flops, FP64_FLOPS)
             k_ms = cuda_ms(lambda: kern(cfg_u))
             p_ms = cuda_ms(lambda: plain(cfg_u))
             per_grid[kname][gname].update(
-                kernel_ms=k_ms, plain_ms=p_ms, bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                kernel_ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                 bytes=in_bytes + out_bytes, fp64_ops=flops)
-            log(f"[4] {kname} at {gname}: kernel {k_ms:.4f} ms, plain "
-                f"{p_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
-                f"({per_grid[kname][gname]['bound_by']})")
+            log(f"[6] {kname} at {gname}: kernel {k_ms:.4f} ms, plain "
+                f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) ({card})")
             torch.cuda.empty_cache()
 
     # end to end: host wall time, and the kernel's device time on the
@@ -314,27 +388,396 @@ def main() -> None:
             k_ms += cuda_ms(lambda: ops.count_term_sums(c, lay, seg))
         e2e[gname] = dict(wall_ms=w_ms, kernel_ms=k_ms,
                           kernel_share=k_ms / w_ms, chunk_size=chunk)
-        log(f"[4] evaluate_networks at {gname} x 18 (chunk {chunk}): wall "
+        log(f"[6] evaluate_networks at {gname} x 18 (chunk {chunk}): wall "
             f"{w_ms:.2f} ms, count_terms kernel {k_ms:.4f} ms = "
-            f"{100 * k_ms / w_ms:.2f}% of it")
+            f"{100 * k_ms / w_ms:.2f}% of it ({card})")
+    log("dse " + json.dumps({"grids": per_grid, "launches": launches,
+                             "evaluate_networks": e2e}))
 
-    log("kernels " + json.dumps({"card": card, "grids": per_grid,
-                                 "launches": launches,
-                                 "evaluate_networks": e2e}))
-    log(card)
-    contract = []
+    rows = []
     for kname in kernels:
         ext = per_grid[kname]["extended"]
-        contract.append(dict(
-            name=kname, route="cuda",
-            source="src/repro_torch/csrc/count_terms.cu",
+        rows.append(dict(
+            name=kname, route="cuda", source=SOURCES[kname],
             replaces=REPLACES[kname], launches=launches[kname],
             max_abs_err=max(g["max_abs_err"] for g in per_grid[kname].values()),
             max_rel_err=max(g["max_rel_err"] for g in per_grid[kname].values()),
             ms=ext["kernel_ms"], plain_ms=ext["plain_ms"],
             bound_ms=ext["bound_ms"], bound_by=ext["bound_by"],
             library_ms=None, shape="extended_grid x 18 networks"))
-    log(json.dumps({"kernels": contract}))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# 3-5. LM path: flash attention and RMSNorm, the serve run, the forward
+# ---------------------------------------------------------------------------
+
+def _rand(shape, gen, dtype, dev):
+    import torch
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+def _flash_operands(case, dtype, gen, dev):
+    b, t, s, h, kv, d = case[:6]
+    return (_rand((b, t, h, d), gen, dtype, dev),
+            _rand((b, s, kv, d), gen, dtype, dev),
+            _rand((b, s, kv, d), gen, dtype, dev))
+
+
+def lm_kernel_checks(dev) -> dict:
+    """Each LM kernel against its plain version on the card → max errors."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa, ref as fa_ref
+    from repro_torch.kernels.rmsnorm import ops as rms, ref as rms_ref
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    errs = {"flash_attention": 0.0, "rmsnorm": 0.0}
+    flash_cases = [
+        # (b, t, s, h, kv, d, causal, window, q_offset, label)
+        (4, 1, 1, 14, 2, 64, False, 0, 0, "decode S=1"),
+        (4, 1, 129, 14, 2, 64, False, 0, 128, "decode S=129"),
+        (4, 1, 1024, 14, 2, 64, False, 0, 1023, "decode S=1024"),
+        (2, 2048, 2048, 14, 2, 64, True, 0, 0, "prefill T=2048 causal"),
+        (2, 512, 512, 14, 2, 64, True, 96, 0, "window T=512 w=96"),
+        (2, 512, 512, 16, 2, 128, True, 0, 0, "D=128 GQA T=512 causal"),
+    ]
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = LM_TOL[str(dtype).split(".")[1]]
+        for case in flash_cases:
+            q, k, v = _flash_operands(case, dtype, gen, dev)
+            causal, window, q_off, label = case[6:]
+            out = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                     q_offset=q_off)
+            torch.cuda.synchronize()
+            want = fa_ref.attention_ref(q, k, v, causal=causal,
+                                        window=window, q_offset=q_off)
+            diff = (out.float() - want.float()).abs()
+            rel = diff / want.float().abs().clamp_min(1.0)
+            err = float(diff.max())
+            log(f"[3] flash_attention {label} {dtype}: max abs err {err:.3e} "
+                f"(tolerance rtol=atol={tol})")
+            if not bool(torch.isfinite(out).all()) or float(
+                    (diff - tol * want.float().abs()).max()) > tol:
+                fail(f"flash_attention {label} {dtype} disagrees with its "
+                     f"plain version: max abs {err}, max rel {float(rel.max())}")
+            errs["flash_attention"] = max(errs["flash_attention"], err)
+        for shape in ((SLOTS, 896), (4096, 896)):
+            x = _rand(shape, gen, dtype, dev)
+            sc = torch.randn(shape[-1], generator=gen, device=dev)
+            out = rms.rmsnorm(x, sc)
+            torch.cuda.synchronize()
+            want = rms_ref.rmsnorm_ref(x, sc)
+            diff = (out.float() - want.float()).abs()
+            err = float(diff.max())
+            log(f"[3] rmsnorm {list(shape)} {dtype}: max abs err {err:.3e} "
+                f"(tolerance rtol=atol={tol})")
+            if not bool(torch.isfinite(out).all()) or float(
+                    (diff - tol * want.float().abs()).max()) > tol:
+                fail(f"rmsnorm {list(shape)} {dtype} disagrees with its "
+                     f"plain version: max abs {err}")
+            if not torch.equal(out, rms.rmsnorm(x, sc)):
+                fail("rmsnorm gives other bits on a second run")
+            errs["rmsnorm"] = max(errs["rmsnorm"], err)
+    return errs
+
+
+def _requests(cfg):
+    import numpy as np
+    from repro_torch.serving.engine import Request
+    rng = np.random.default_rng(0)
+    out = []
+    for rid in range(N_REQUESTS):
+        n = int(rng.integers(*PROMPT_LEN))
+        prompt = rng.integers(0, cfg.vocab, size=n).astype(np.int32)
+        out.append(Request(rid=rid, prompt=prompt,
+                           max_new_tokens=NEW_TOKENS))
+    return out
+
+
+def serve_run(cfg, model, dev, backend):
+    """Serve the request set; record every decode call's inputs and
+    logits → (engine, drain result, wall s, [(tokens, logits), ...])."""
+    import torch
+    from repro_torch.serving import ServeEngine
+
+    engine = ServeEngine(cfg, model, batch_slots=SLOTS, max_seq=MAX_SEQ,
+                         device=dev, backend=backend)
+    calls = []
+    decode = engine._decode
+
+    def recording(tokens):
+        logits = decode(tokens)
+        calls.append((tokens.copy(), logits))
+        return logits
+
+    engine._decode = recording
+    for req in _requests(cfg):
+        engine.submit(req)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = engine.run_until_drained()
+    torch.cuda.synchronize()
+    return engine, done, time.perf_counter() - t0, calls
+
+
+def logit_tol(want):
+    """bf16 tolerance of one step's logits: 2e-2 of the step's largest
+    logit plus 2e-2 of each logit (a bf16 ulp at the top is 2^-8 of it)."""
+    return 2e-2 * want.abs().amax() + 2e-2 * want.abs()
+
+
+def lm_path(dev, card) -> list:
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa, ref as fa_ref
+    from repro_torch.kernels.rmsnorm import ops as rms, ref as rms_ref
+    from repro_torch.models import model_zoo as Z
+    from repro_torch.models import params as P
+
+    errs = lm_kernel_checks(dev)
+
+    # ---- 4. serve at full width ------------------------------------------
+    cfg = get_config("qwen2-0.5b")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = Z.init(cfg, gen, dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    log(f"[4] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}; {n_params} parameters, {param_bytes / 1e9:.3f} GB "
+        f"(bf16 weights, f32 norm scales)")
+
+    fa.reset_launch_counts()
+    rms.reset_launch_counts()
+    eng_k, done_k, wall_k, calls_k = serve_run(cfg, model, dev, "cuda")
+    launches = {**fa.launch_counts(), **rms.launch_counts()}
+    n_calls = len(calls_k)
+    toks_k = {r.rid: r.out_tokens for r in done_k}
+    n_tok = sum(len(t) for t in toks_k.values())
+    length = eng_k.cache["length"]
+    log(f"[4] serve on the kernels: {len(done_k)} requests, {n_tok} tokens, "
+        f"{n_calls} decode calls, drained {done_k.drained}, shared length "
+        f"{length} of {MAX_SEQ}; wall {wall_k:.3f} s "
+        f"({n_tok / wall_k:.2f} tok/s); launches {launches} ({card})")
+    if not done_k.drained or len(done_k) != N_REQUESTS:
+        fail("the kernel serve run did not drain")
+    if length >= MAX_SEQ:
+        fail(f"shared length {length} reached max_seq {MAX_SEQ}")
+    if launches != {"flash_attention": cfg.n_layers * n_calls,
+                    "rmsnorm": (2 * cfg.n_layers + 1) * n_calls}:
+        fail(f"launch counts {launches} are not {cfg.n_layers} flash and "
+             f"{2 * cfg.n_layers + 1} rmsnorm per decode call x {n_calls}")
+
+    eng_p, done_p, wall_p, calls_p = serve_run(cfg, model, dev, "torch")
+    toks_p = {r.rid: r.out_tokens for r in done_p}
+    log(f"[4] serve on the plain versions: drained {done_p.drained}, "
+        f"{len(calls_p)} decode calls, wall {wall_p:.3f} s "
+        f"({sum(len(t) for t in toks_p.values()) / wall_p:.2f} tok/s) "
+        f"({card})")
+    if not done_p.drained or len(done_p) != N_REQUESTS:
+        fail("the plain serve run did not drain")
+
+    # replay the kernel run's inputs through the plain decode step
+    cache = P.init_tree(Z.cache_spec(cfg, SLOTS, MAX_SEQ), device=dev)
+    worst, compared, near_ties = 0.0, 0, 0
+    for tokens, logits in calls_k:
+        want, cache = Z.decode_step(model, cfg,
+                                    torch.from_numpy(tokens).to(dev), cache,
+                                    backend="torch")
+        got, want = logits[:, -1].float(), want[:, -1].float()
+        tol = logit_tol(want)
+        excess = float(((got - want).abs() - tol).max())
+        worst = max(worst, float(((got - want).abs()
+                                  / want.abs().amax()).max()))
+        if excess > 0:
+            fail(f"decode logits of the kernels and the plain versions "
+                 f"differ beyond bf16 tolerance by {excess}")
+        top2 = want.topk(2, dim=-1)
+        gap = top2.values[:, 0] - top2.values[:, 1]
+        sure = gap > 2 * tol.gather(1, top2.indices[:, :1])[:, 0]
+        near_ties += int((~sure).sum())
+        compared += int(sure.sum())
+        if bool((got.argmax(-1) != top2.indices[:, 0])[sure].any()):
+            fail("a kernel decode step picked another token where the plain "
+                 "version's top-2 gap exceeds twice the tolerance")
+    same = sum(toks_k[r] == toks_p[r] for r in toks_k)
+    log(f"[4] {n_calls} decode steps replayed through the plain versions: "
+        f"max |logit diff| / max |logit| {worst:.3e} (tolerance 2e-2); "
+        f"argmax equal at all {compared} slot-steps with a clear top-2 gap "
+        f"({near_ties} near ties); served tokens equal for {same} of "
+        f"{len(toks_k)} requests")
+    if same != len(toks_k) and near_ties == 0:
+        fail("the two serve runs served other tokens without a near tie")
+
+    # decode step time at the end state of the kernel run
+    last = torch.from_numpy(calls_k[-1][0]).to(dev)
+    state = dict(eng_k.cache)
+    step_ms = {b: cuda_ms(lambda: Z.decode_step(model, cfg, last,
+                                                dict(state), backend=b))
+               for b in ("cuda", "torch")}
+    log(f"[6] decode step at length {length}: kernels {step_ms['cuda']:.3f} "
+        f"ms, plain {step_ms['torch']:.3f} ms; weight-read bound "
+        f"{param_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({card})")
+    prof = {"decode": profile_ms(lambda: Z.decode_step(
+        model, cfg, last, dict(state), backend="cuda"), steps=5)}
+    del calls_p, eng_p
+    torch.cuda.empty_cache()
+
+    # ---- 5. prefill forward at full width ----------------------------------
+    batch = Z.make_batch(cfg, seq_len=PREFILL_T, global_batch=PREFILL_B,
+                         generator=torch.Generator(device=dev).manual_seed(2),
+                         device=dev)
+    fa.reset_launch_counts()
+    rms.reset_launch_counts()
+    logits_k = Z.forward(model, cfg, batch, backend="cuda")
+    torch.cuda.synchronize()
+    fwd_launches = {**fa.launch_counts(), **rms.launch_counts()}
+    logits_p = Z.forward(model, cfg, batch, backend="torch")
+    fwd_err, fwd_excess = 0.0, -1.0
+    for i in range(PREFILL_B):
+        got, want = logits_k[i].float(), logits_p[i].float()
+        fwd_excess = max(fwd_excess,
+                         float(((got - want).abs() - logit_tol(want)).max()))
+        fwd_err = max(fwd_err, float(((got - want).abs()
+                                      / want.abs().amax()).max()))
+    finite = bool(torch.isfinite(logits_k).all())
+    log(f"[5] forward B {PREFILL_B} T {PREFILL_T}: logits "
+        f"{tuple(logits_k.shape)} finite {finite}, max |diff| / max |logit| "
+        f"{fwd_err:.3e} (tolerance 2e-2), launches {fwd_launches}")
+    if (not finite or fwd_excess > 0
+            or tuple(logits_k.shape) != (PREFILL_B, PREFILL_T, cfg.vocab)):
+        fail("the forward on the kernels disagrees with the plain versions")
+    if fwd_launches != {"flash_attention": cfg.n_layers,
+                        "rmsnorm": 2 * cfg.n_layers + 1}:
+        fail(f"forward launch counts {fwd_launches}")
+    del logits_k, logits_p
+    torch.cuda.empty_cache()
+    fwd_ms = {b: cuda_ms(lambda: Z.forward(model, cfg, batch, backend=b),
+                         warmup=1) for b in ("cuda", "torch")}
+    log(f"[6] forward B {PREFILL_B} T {PREFILL_T}: kernels "
+        f"{fwd_ms['cuda']:.2f} ms, plain {fwd_ms['torch']:.2f} ms ({card})")
+    prof["forward"] = profile_ms(lambda: Z.forward(model, cfg, batch,
+                                                   backend="cuda"), steps=2)
+    for name, r in prof.items():
+        log(f"[6] profile of the {name} on the kernels: wall "
+            f"{r['wall_ms']:.3f} ms, device busy {r['device_ms']:.3f} ms "
+            f"({100 * r['busy_share']:.1f}%), {r['kernel_launches']:.0f} "
+            f"kernel launches per call ({card})")
+        for k, ms, n in r["top_device"]:
+            log(f"      device {ms:9.4f} ms x{n:<5d} {k}")
+        for k, ms, n in r["top_host"]:
+            log(f"      host   {ms:9.4f} ms x{n:<5d} {k}")
+
+    # ---- 6. kernel times ----------------------------------------------------
+    import torch.nn.functional as F
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(3)
+    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    times = {}
+    for label, case in (
+            ("decode", (SLOTS, 1, length, h, kvh, d, False)),
+            ("prefill", (PREFILL_B, PREFILL_T, PREFILL_T, h, kvh, d, True))):
+        b, t, s, _, _, _, causal = case
+        q, k, v = _flash_operands(case, bf16, g, dev)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        try:
+            lib = lambda: F.scaled_dot_product_attention(       # noqa: E731
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+            lib()
+        except TypeError:       # torch without enable_gqa: repeat kv heads
+            kr = kt.repeat_interleave(h // kvh, 1)
+            vr = vt.repeat_interleave(h // kvh, 1)
+            lib = lambda: F.scaled_dot_product_attention(       # noqa: E731
+                qt, kr, vr, is_causal=causal)
+        pairs = b * h * (t * (t + 1) // 2 if causal else t * s)
+        n_bytes = 2 * (2 * b * t * h * d + 2 * b * s * kvh * d)
+        b_ms, b_by = bound(n_bytes, 4 * d * pairs, BF16_FLOPS)
+        times[f"flash_attention {label}"] = dict(
+            shape=[b, t, s, h, kvh, d], causal=causal,
+            ms=cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal)),
+            plain_ms=cuda_ms(lambda: fa_ref.attention_ref(q, k, v,
+                                                          causal=causal)),
+            library_ms=cuda_ms(lib), bound_ms=b_ms, bound_by=b_by,
+            bytes=n_bytes, ops=4 * d * pairs)
+    scale = torch.ones(cfg.d_model, device=dev)
+    for label, n in (("decode", SLOTS), ("prefill", PREFILL_B * PREFILL_T)):
+        x = _rand((n, cfg.d_model), g, bf16, dev)
+        sb = scale.to(bf16)
+        n_bytes = 2 * n * cfg.d_model * 2 + 4 * cfg.d_model
+        b_ms, b_by = bound(n_bytes, 4 * n * cfg.d_model, FP32_FLOPS)
+        times[f"rmsnorm {label}"] = dict(
+            shape=[n, cfg.d_model],
+            ms=cuda_ms(lambda: rms.rmsnorm(x, scale)),
+            plain_ms=cuda_ms(lambda: rms_ref.rmsnorm_ref(x, scale)),
+            library_ms=cuda_ms(lambda: F.rms_norm(x, (cfg.d_model,), sb,
+                                                  1e-6)),
+            bound_ms=b_ms, bound_by=b_by, bytes=n_bytes)
+    for name, r in times.items():
+        log(f"[6] {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}) ({card})")
+
+    log("lm " + json.dumps({
+        "card": card, "model": cfg.name, "params": n_params,
+        "param_bytes": param_bytes,
+        "serve": dict(requests=N_REQUESTS, slots=SLOTS,
+                      new_tokens=NEW_TOKENS, max_seq=MAX_SEQ,
+                      tokens=n_tok, decode_calls=n_calls, length=length,
+                      wall_s_kernels=wall_k, wall_s_plain=wall_p,
+                      tok_per_s_kernels=n_tok / wall_k,
+                      tok_per_s_plain=n_tok / wall_p,
+                      decode_step_ms=step_ms, launches=launches,
+                      max_rel_logit_diff=worst, near_ties=near_ties),
+        "forward": dict(batch=PREFILL_B, seq=PREFILL_T, ms=fwd_ms,
+                        launches=fwd_launches, max_rel_logit_diff=fwd_err),
+        "profile": prof,
+        "kernels": times, "max_abs_err": errs}))
+
+    rows = []
+    for name in ("flash_attention", "rmsnorm"):
+        r = times[f"{name} decode"]
+        rows.append(dict(
+            name=name, route="cuda", source=SOURCES[name],
+            replaces=REPLACES[name], launches=launches[name],
+            max_abs_err=errs[name], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"],
+            shape=f"serve decode {r['shape']} bf16"))
+    return rows
+
+
+def main() -> None:
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("no CUDA device is available")
+    src = Path(__file__).resolve().parent / "src"
+    if not (src / "repro_torch").is_dir():
+        fail(f"{src / 'repro_torch'} not found: run from a checkout of the "
+             f"repository")
+    sys.path.insert(0, str(src))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    card = smi[0] if smi else "nvidia-smi gave nothing"
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"card {torch.cuda.get_device_name(0)} ({card}); TF32 off")
+
+    t0 = time.perf_counter()
+    build_all()
+    rows = dse_path(dev, card)
+    rows += lm_path(dev, card)
+    log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
+    log(card)
+    log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -48,6 +48,7 @@ from typing import Any, Dict, List, Mapping, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..device import BACKENDS, resolve_backend, resolve_device  # noqa: F401
 from .accelerator import AcceleratorConfig, ConfigGrid
 from . import rs_mapping
 from .topology import Layer
@@ -266,12 +267,9 @@ def _cfg_struct(cfg: AcceleratorConfig, device) -> Dict[str, torch.Tensor]:
 
 
 # ---------------------------------------------------------------------------
-# Devices and backends.
+# Backends (``resolve_device`` / ``resolve_backend`` live in
+# :mod:`repro_torch.device` and are re-exported here).
 # ---------------------------------------------------------------------------
-
-#: Selectable heavy-stage backends: the hand-written CUDA kernels, and the
-#: same arithmetic as plain torch operations.
-BACKENDS = ("cuda", "torch")
 
 _LAST_BACKEND: str | None = None
 
@@ -280,35 +278,6 @@ def last_backend() -> str | None:
     """Backend the most recent engine call ran its heavy stage on
     (``"cuda" | "torch"``) — ``None`` before the first call."""
     return _LAST_BACKEND
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` → the card.  A CUDA device without a card raises: the
-    engine never moves to the CPU unless the caller asks for it."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device=\"cpu\" to run the "
-            "port's plain torch path on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"device must be a CUDA device or the CPU, got {dev}")
-    return dev
-
-
-def resolve_backend(backend: str | None, device: torch.device) -> str:
-    """``None`` → ``"cuda"`` on a CUDA device, ``"torch"`` on the CPU.
-    ``"cuda"`` on the CPU raises; there is no fallback."""
-    if backend is None:
-        return "cuda" if device.type == "cuda" else "torch"
-    if backend not in BACKENDS:
-        raise ValueError(f"backend must be one of {BACKENDS}, "
-                         f"got {backend!r}")
-    if backend == "cuda" and device.type != "cuda":
-        raise ValueError(
-            f"backend='cuda' runs the hand-written kernels and needs a CUDA "
-            f"device, got device={str(device)!r}; use backend='torch' on "
-            f"the CPU")
-    return backend
 
 
 def simulate_network(cfg: AcceleratorConfig, layers: Sequence[Layer],

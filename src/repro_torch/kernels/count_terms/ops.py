@@ -10,9 +10,7 @@ kernels' [7, n_u] and [16, L] float64 layouts, and return a 14-tuple of
 
 The kernels (``src/repro_torch/csrc/count_terms.cu``) are compiled with
 ``nvcc`` at first use into a shared library with a plain C interface,
-loaded with ``ctypes``.  The library goes under ``build/repro_torch_kernels/``
-in the checkout, keyed by a hash of the source and the flags, so a changed
-source builds anew and an unchanged one loads what is there.
+loaded with ``ctypes`` (:mod:`repro_torch.kernels._build`).
 
 ``launch_counts()`` counts the launches of each kernel: it rises only where
 a kernel is launched, never on the plain path.
@@ -21,16 +19,13 @@ a kernel is launched, never on the plain path.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Dict, Tuple
 
 import torch
 
 from ...core.energymodel import _COUNT_COLUMNS as CFG_COLUMNS
+from .. import _build
 from . import ref
 
 #: Row order of the stacked layer operand (``rs_mapping.layer_struct`` keys).
@@ -41,15 +36,11 @@ LAYER_FIELDS = ("c_ch", "m", "ky", "kx", "stride", "ix", "iy", "oy", "ox",
 #: Number of count terms (see ``energymodel._count_terms``).
 N_TERMS = 14
 
-SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "count_terms.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch_kernels"
+SOURCE = _build.CSRC / "count_terms.cu"
 
 #: ``--fmad=false``: no multiply-add is contracted, so the kernels round
-#: every operation as the plain torch versions do.  ``-Xptxas=-v`` puts the
-#: registers and spills of each kernel into the build log.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas=-v", "-shared",
-              "-Xcompiler", "-fPIC")
+#: every operation as the plain torch versions do.
+NVCC_FLAGS = ("--fmad=false",)
 
 _LIB = None
 _LAUNCHES: Dict[str, int] = {"count_terms": 0, "count_layers": 0}
@@ -65,51 +56,19 @@ def reset_launch_counts() -> None:
         _LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.is_file():
-        return str(cand)
-    raise RuntimeError("nvcc not found (PATH, CUDA_HOME); the count-terms "
-                       "kernels are built from source at first use")
-
-
 def build() -> Tuple[Path, str]:
-    """Compile the kernels if no library for this source exists yet.
-
-    Returns the library's path and the compiler's log ("" when the library
-    was already built).  Writes to a temporary name and renames, so
-    processes that build at once never load a half-written file."""
-    key = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / key / "libcount_terms.so"
-    if lib.is_file():
-        return lib, ""
-    lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f".{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {SOURCE}:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
+    """Compile the kernels if no library for this source exists yet →
+    (library path, compiler log) — see :mod:`repro_torch.kernels._build`."""
+    return _build.build(SOURCE, NVCC_FLAGS)
 
 
 def _lib():
     global _LIB
     if _LIB is None:
-        path, _ = build()
-        lib = ctypes.CDLL(str(path))
-        p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.count_terms_launch.argtypes = [p, i64, p, i64, p, p, i64, p, p]
-        lib.count_terms_launch.restype = i32
-        lib.count_layers_launch.argtypes = [p, i64, p, i64, p, p]
-        lib.count_layers_launch.restype = i32
-        _LIB = lib
+        p, i64 = ctypes.c_void_p, ctypes.c_int64
+        _LIB = _build.load(SOURCE, NVCC_FLAGS, {
+            "count_terms_launch": [p, i64, p, i64, p, p, i64, p, p],
+            "count_layers_launch": [p, i64, p, i64, p, p]})
     return _LIB
 
 

@@ -13,11 +13,13 @@ import pytest
 import torch
 
 from repro_torch.core import accelerator, dse, energymodel, topology
+from repro_torch.kernels import _build
 from repro_torch.kernels.count_terms import ops
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "src" / "repro_torch"
-PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "examples").glob("*_torch.py")))
 
 
 def _modules():
@@ -77,6 +79,23 @@ def test_entry_points_raise_without_a_card(no_card):
             call()
 
 
+def test_serving_entry_points_raise_without_a_card(no_card):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model_zoo
+    from repro_torch.serving import ServeEngine
+
+    cfg = get_config("qwen2-0.5b").smoke()
+    model = model_zoo.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    for call in (lambda: ServeEngine(cfg, model),
+                 lambda: ServeEngine(cfg, model, device="cuda"),
+                 lambda: serve.main(["--requests", "1"])):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        ServeEngine(cfg, model, device="cpu", backend="cuda")
+
+
 def test_cuda_backend_on_cpu_raises():
     grid = accelerator.ConfigGrid.product()
     nets = {"AlexNet": topology.get_network("AlexNet")}
@@ -112,9 +131,9 @@ def test_missing_kernel_raises_instead_of_falling_back(monkeypatch):
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
-    monkeypatch.setattr(ops.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
-    monkeypatch.setattr(ops, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         ops.build()
 
@@ -131,23 +150,30 @@ def test_wrappers_reject_other_devices():
         ops.count_term_sums(mixed, lay, ((0, 4),))
 
 
+class _FakeNvcc:
+    """Stands in for ``subprocess.Popen`` of nvcc: writes the library."""
+    calls = []
+
+    def __init__(self, cmd, **kw):
+        Path(cmd[cmd.index("-o") + 1]).write_text("lib")
+        self.returncode = 0
+        _FakeNvcc.calls.append(cmd)
+
+    def communicate(self):
+        return "ptxas info", None
+
+
 def test_build_key_follows_source(monkeypatch, tmp_path):
     """The library is keyed by a hash of the source and the flags, so an
     edited source never loads a stale build."""
     src = tmp_path / "k.cu"
     src.write_text("// a")
     monkeypatch.setattr(ops, "SOURCE", src)
-    monkeypatch.setattr(ops, "BUILD_DIR", tmp_path / "build")
-    seen = []
-
-    def fake_run(cmd, **kw):
-        out = Path(cmd[cmd.index("-o") + 1])
-        out.write_text("lib")
-        seen.append(cmd)
-        return subprocess.CompletedProcess(cmd, 0, "", "ptxas info")
-
-    monkeypatch.setattr(ops, "_nvcc", lambda: "nvcc")
-    monkeypatch.setattr(ops.subprocess, "run", fake_run)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "Popen", _FakeNvcc)
+    _FakeNvcc.calls = []
+    seen = _FakeNvcc.calls
     lib_a, log_a = ops.build()
     assert log_a == "ptxas info" and lib_a.is_file()
     assert ops.build() == (lib_a, "")           # cached: no second compile
