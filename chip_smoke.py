@@ -417,11 +417,15 @@ def _rand(shape, gen, dtype, dev):
     return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
 
-def _flash_operands(case, dtype, gen, dev):
+def _flash_operands(case, dtype, gen, dev, cache_len=0):
+    """q, k, v of a case; with ``cache_len`` k and v are the prefix views
+    ``cache[:, :s]`` of [b, cache_len, kv, d] buffers, the strided layout
+    the decode step hands the kernel."""
     b, t, s, h, kv, d = case[:6]
+    rows = cache_len or s
     return (_rand((b, t, h, d), gen, dtype, dev),
-            _rand((b, s, kv, d), gen, dtype, dev),
-            _rand((b, s, kv, d), gen, dtype, dev))
+            _rand((b, rows, kv, d), gen, dtype, dev)[:, :s],
+            _rand((b, rows, kv, d), gen, dtype, dev)[:, :s])
 
 
 def lm_kernel_checks(dev) -> dict:
@@ -433,19 +437,23 @@ def lm_kernel_checks(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1)
     errs = {"flash_attention": 0.0, "rmsnorm": 0.0}
     flash_cases = [
-        # (b, t, s, h, kv, d, causal, window, q_offset, label)
-        (4, 1, 1, 14, 2, 64, False, 0, 0, "decode S=1"),
-        (4, 1, 129, 14, 2, 64, False, 0, 128, "decode S=129"),
-        (4, 1, 1024, 14, 2, 64, False, 0, 1023, "decode S=1024"),
-        (2, 2048, 2048, 14, 2, 64, True, 0, 0, "prefill T=2048 causal"),
-        (2, 512, 512, 14, 2, 64, True, 96, 0, "window T=512 w=96"),
-        (2, 512, 512, 16, 2, 128, True, 0, 0, "D=128 GQA T=512 causal"),
+        # (b, t, s, h, kv, d, causal, window, q_offset, cache_len, label);
+        # cache_len > 0: k, v are prefix views of a [b, cache_len, kv, d]
+        # cache, as the decode step passes them
+        (4, 1, 1, 14, 2, 64, False, 0, 0, 0, "decode S=1"),
+        (4, 1, 129, 14, 2, 64, False, 0, 128, 0, "decode S=129"),
+        (4, 1, 1024, 14, 2, 64, False, 0, 1023, 0, "decode S=1024"),
+        (4, 1, 405, 14, 2, 64, False, 0, 404, MAX_SEQ,
+         f"decode S=405 of a {MAX_SEQ}-row cache view"),
+        (2, 2048, 2048, 14, 2, 64, True, 0, 0, 0, "prefill T=2048 causal"),
+        (2, 512, 512, 14, 2, 64, True, 96, 0, 0, "window T=512 w=96"),
+        (2, 512, 512, 16, 2, 128, True, 0, 0, 0, "D=128 GQA T=512 causal"),
     ]
     for dtype in (torch.float32, torch.bfloat16):
         tol = LM_TOL[str(dtype).split(".")[1]]
         for case in flash_cases:
-            q, k, v = _flash_operands(case, dtype, gen, dev)
-            causal, window, q_off, label = case[6:]
+            causal, window, q_off, cache_len, label = case[6:]
+            q, k, v = _flash_operands(case, dtype, gen, dev, cache_len)
             out = fa.flash_attention(q, k, v, causal=causal, window=window,
                                      q_offset=q_off)
             torch.cuda.synchronize()
@@ -630,7 +638,7 @@ def lm_path(dev, card) -> list:
                          device=dev)
     fa.reset_launch_counts()
     rms.reset_launch_counts()
-    logits_k = Z.forward(model, cfg, batch, backend="cuda")
+    logits_k = Z.forward(model, cfg, batch)     # on the card: the kernels
     torch.cuda.synchronize()
     fwd_launches = {**fa.launch_counts(), **rms.launch_counts()}
     logits_p = Z.forward(model, cfg, batch, backend="torch")
@@ -681,15 +689,8 @@ def lm_path(dev, card) -> list:
         b, t, s, _, _, _, causal = case
         q, k, v = _flash_operands(case, bf16, g, dev)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        try:
-            lib = lambda: F.scaled_dot_product_attention(       # noqa: E731
-                qt, kt, vt, is_causal=causal, enable_gqa=True)
-            lib()
-        except TypeError:       # torch without enable_gqa: repeat kv heads
-            kr = kt.repeat_interleave(h // kvh, 1)
-            vr = vt.repeat_interleave(h // kvh, 1)
-            lib = lambda: F.scaled_dot_product_attention(       # noqa: E731
-                qt, kr, vr, is_causal=causal)
+        lib = lambda: F.scaled_dot_product_attention(           # noqa: E731
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
         pairs = b * h * (t * (t + 1) // 2 if causal else t * s)
         n_bytes = 2 * (2 * b * t * h * d + 2 * b * s * kvh * d)
         b_ms, b_by = bound(n_bytes, 4 * d * pairs, BF16_FLOPS)

@@ -8,7 +8,9 @@ d], activations [B, T, H, D].  Where the reference computes RMSNorm and
 attention in XLA, the port calls its kernels: ``apply_norm``'s rms branch
 goes through :mod:`repro_torch.kernels.rmsnorm` and ``mha`` through
 :mod:`repro_torch.kernels.flash_attention`.  ``backend`` picks the
-hand-written kernels (``"cuda"``) or their plain versions (``"torch"``).
+hand-written kernels (``"cuda"``) or their plain versions (``"torch"``);
+it has no default here: the model's entry points resolve it from the
+device (:func:`repro_torch.device.resolve_backend`).
 The reference's ``shard`` calls are no-ops outside a mesh and are dropped.
 """
 
@@ -29,13 +31,11 @@ from .params import Spec
 _EPS = 1e-6
 
 
-def _rmsnorm_fn(backend: str):
-    return rms_ops.rmsnorm if backend == "cuda" else rms_ref.rmsnorm_ref
-
-
-def _attention_fn(backend: str):
-    return (flash_ops.flash_attention if backend == "cuda"
-            else flash_ref.attention_ref)
+# backend → function; an unknown backend raises KeyError, so nothing here
+# picks the plain versions without being asked
+_RMSNORM = {"cuda": rms_ops.rmsnorm, "torch": rms_ref.rmsnorm_ref}
+_ATTENTION = {"cuda": flash_ops.flash_attention,
+              "torch": flash_ref.attention_ref}
 
 
 # ---------------------------------------------------------------------------
@@ -50,8 +50,7 @@ def norm_spec(cfg, d: Optional[int] = None) -> Dict[str, Spec]:
     return s
 
 
-def apply_norm(p, cfg, x: torch.Tensor, *, backend: str = "torch"
-               ) -> torch.Tensor:
+def apply_norm(p, cfg, x: torch.Tensor, *, backend: str) -> torch.Tensor:
     """RMSNorm (through the kernel) or LayerNorm (plain torch, as the
     reference computes it outside any kernel).
 
@@ -65,7 +64,7 @@ def apply_norm(p, cfg, x: torch.Tensor, *, backend: str = "torch"
         inv = torch.rsqrt(var + _EPS)
         return ((x - mu.to(x.dtype)) * inv.to(x.dtype)
                 * p["scale"].to(x.dtype) + p["bias"].to(x.dtype))
-    return _rmsnorm_fn(backend)(x, p["scale"], _EPS)
+    return _RMSNORM[backend](x, p["scale"], _EPS)
 
 
 # ---------------------------------------------------------------------------
@@ -155,7 +154,7 @@ def causal_mask(t: int, s: int, window: int = 0, offset: int = 0,
 
 
 def mha(p, cfg, x, *, positions, mask_mode="causal", window=0,
-        cache=None, apply_rope=True, backend: str = "torch"):
+        cache=None, apply_rope=True, backend: str):
     """Full attention path → (out, new_cache).
 
     Prefill/forward: cache is None → self-attention over x through the
@@ -173,7 +172,7 @@ def mha(p, cfg, x, *, positions, mask_mode="causal", window=0,
     if apply_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    attend = _attention_fn(backend)
+    attend = _ATTENTION[backend]
 
     if cache is None:
         out = attend(q, k, v, causal=mask_mode == "causal", window=window)

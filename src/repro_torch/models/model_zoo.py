@@ -9,7 +9,7 @@ the dry-run, which are not ported yet.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -46,7 +46,9 @@ def init(cfg: ModelConfig, generator: torch.Generator, device=None
 
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
-            backend: str = "torch"):
+            backend: Optional[str] = None):
+    """Logits [B, T, vocab]; ``backend=None`` → the kernels on a CUDA
+    device, their plain versions on the CPU."""
     return module_for(cfg).forward(params, cfg, batch, backend=backend)
 
 
@@ -55,7 +57,7 @@ def cache_spec(cfg: ModelConfig, batch_size: int, seq_len: int):
 
 
 def decode_step(params, cfg: ModelConfig, tokens, cache, *,
-                backend: str = "torch"):
+                backend: Optional[str] = None):
     return module_for(cfg).decode_step(params, cfg, tokens, cache,
                                        backend=backend)
 

@@ -12,11 +12,12 @@ variants are not ported yet (ROADMAP.md).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
+from ..device import resolve_backend
 from . import layers as L
 from .params import Spec
 
@@ -79,7 +80,7 @@ class Transformer(nn.Module):
         self.final_norm = _param_dict(tree["final_norm"])
 
 
-def _block(p: Block, cfg, x, *, positions, cache=None, backend="torch"):
+def _block(p: Block, cfg, x, *, positions, backend: str, cache=None):
     h, new_cache = L.mha(p.attn, cfg,
                          L.apply_norm(p.attn_norm, cfg, x, backend=backend),
                          positions=positions, cache=cache, backend=backend)
@@ -91,10 +92,12 @@ def _block(p: Block, cfg, x, *, positions, cache=None, backend="torch"):
 
 @torch.no_grad()
 def forward(params: Transformer, cfg, batch: Dict[str, torch.Tensor], *,
-            backend: str = "torch") -> torch.Tensor:
-    """Prefill forward → logits [B, T, vocab]."""
+            backend: Optional[str] = None) -> torch.Tensor:
+    """Prefill forward → logits [B, T, vocab].  ``backend=None`` → the
+    kernels on a CUDA device, their plain versions on the CPU."""
     _check_family(cfg)
     tokens = batch["tokens"]
+    backend = resolve_backend(backend, tokens.device)
     x = L.embed(params.embed, cfg, tokens)
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)[None, :]
@@ -118,15 +121,17 @@ def cache_spec(cfg, batch_size: int, seq_len: int) -> Dict[str, Any]:
 
 @torch.no_grad()
 def decode_step(params: Transformer, cfg, tokens: torch.Tensor,
-                cache: Dict[str, Any], *, backend: str = "torch"
+                cache: Dict[str, Any], *, backend: Optional[str] = None
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """tokens: [B, T] new token ids → (logits [B, T, vocab], new cache).
 
     The new K/V are written into ``cache["k"]`` / ``cache["v"]`` IN
     PLACE (the reference returns updated copies); the returned dict holds
     the same tensors and the advanced length.  Every slot writes at the
-    one shared length, and it advances for all of them."""
+    one shared length, and it advances for all of them.  ``backend`` as
+    in :func:`forward`."""
     _check_family(cfg)
+    backend = resolve_backend(backend, tokens.device)
     x = L.embed(params.embed, cfg, tokens)
     length = int(cache["length"])
     positions = torch.full((1, 1), length, dtype=torch.int32,

@@ -8,6 +8,9 @@ Tolerances: f32 2e-5, bf16 2e-2 — the reference's own kernel tolerance
 its tests carry the ``cuda`` marker and skip elsewhere.
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,16 +33,25 @@ def _tol(name):
 
 def _qkv(b, t, s, h, kv, d, name, seed=3):
     """Same values for both packages: numpy draws, rounded once to the
-    working dtype on the JAX side and carried over bit for bit."""
+    working dtype in numpy and carried over bit for bit."""
     rng = np.random.default_rng(seed)
     jdt, tdt = DTYPES[name]
-    arrs = [jnp.asarray(rng.standard_normal(shape, np.float32)).astype(jdt)
+    arrs = [rng.standard_normal(shape, np.float32).astype(jdt)
             for shape in ((b, t, h, d), (b, s, kv, d), (b, s, kv, d))]
-    ts = [torch.from_numpy(np.array(a.astype(jnp.float32))).to(tdt)
-          for a in arrs]
+    ts = [torch.from_numpy(a.astype(np.float32)).to(tdt) for a in arrs]
     return arrs, ts
 
 
+# The reference's functions run jitted (one compile per shape, where eager
+# dispatch would compile each of their operations on its own), at XLA's
+# lowest backend optimisation level, which compiles them several times
+# faster; the results agree within the tolerances above all the same.
+_jit = functools.partial(
+    jax.jit, compiler_options={"xla_backend_optimization_level": 0})
+_ref_flash = _jit(ref_flash, static_argnames=("causal", "window"))
+
+
+@functools.partial(_jit, static_argnums=(3, 4))
 def _oracle(q, k, v, causal, window):
     """The reference's attention_ref on [B, H, T, D] with repeated kv."""
     g = q.shape[2] // k.shape[2]
@@ -47,6 +59,17 @@ def _oracle(q, k, v, causal, window):
     vr = jnp.repeat(v.transpose(0, 2, 1, 3), g, axis=1)
     return ref_oracle(q.transpose(0, 2, 1, 3), kr, vr, causal=causal,
                       window=window).transpose(0, 2, 1, 3)
+
+
+@_jit
+def _ref_sdpa(q, k, v, mask):
+    return ref_layers._sdpa(None, q, k, v, mask)
+
+
+@_jit
+def _ref_blockwise(q, k, v):
+    return ref_layers._sdpa_blockwise(None, q, k, v, causal=True, bq=128,
+                                      bkv=128)
 
 
 @pytest.fixture
@@ -64,7 +87,7 @@ def cuda_device():
 ])
 def test_flash_matches_reference(b, t, h, kv, d, name, causal, window):
     (qj, kj, vj), (q, k, v) = _qkv(b, t, t, h, kv, d, name)
-    want = np.asarray(ref_flash(qj, kj, vj, causal=causal, window=window),
+    want = np.asarray(_ref_flash(qj, kj, vj, causal=causal, window=window),
                       np.float32)
     oracle = np.asarray(_oracle(qj, kj, vj, causal, window), np.float32)
     ops.reset_launch_counts()
@@ -84,12 +107,12 @@ def test_decode_over_cache_prefix_matches_sdpa_mask(length, window):
     whole cache."""
     b, h, kv, d, s = 4, 14, 2, 64, 64
     (qj, kj, vj), (q, k, v) = _qkv(b, 1, s, h, kv, d, "f32", seed=4)
-    kpos = jnp.arange(s)
+    kpos = np.arange(s)
     valid = kpos[None, :] <= length
     if window:
         valid = valid & (kpos[None, :] > length - window)
-    want = np.asarray(ref_layers._sdpa(None, qj, kj, vj,
-                                       valid[None, None, None]), np.float32)
+    want = np.asarray(_ref_sdpa(qj, kj, vj, valid[None, None, None]),
+                      np.float32)
     n = min(length + 1, s)
     got = ops.flash_attention(q, k[:, :n], v[:, :n], causal=False,
                               window=window, q_offset=length)
@@ -99,13 +122,8 @@ def test_decode_over_cache_prefix_matches_sdpa_mask(length, window):
 def test_flash_matches_model_blockwise_path():
     """The reference's blockwise XLA attention (the T ≥ 1024 prefill path
     of its model) and the port's attention agree."""
-
-    class C:
-        pass
-
     (qj, kj, vj), (q, k, v) = _qkv(1, 256, 256, 4, 2, 64, "f32", seed=5)
-    blk = ref_layers._sdpa_blockwise(C, qj, kj, vj, causal=True, bq=128,
-                                     bkv=128)
+    blk = _ref_blockwise(qj, kj, vj)
     got = ops.flash_attention(q, k, v, causal=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(blk), **_tol("f32"))
 
@@ -115,8 +133,8 @@ def test_port_sdpa_matches_reference_and_flash(window):
     """The port's plain ``_sdpa`` with ``causal_mask`` equals the
     reference's, and the flash path computes the same attention."""
     (qj, kj, vj), (q, k, v) = _qkv(2, 40, 40, 4, 2, 64, "f32", seed=6)
-    want = np.asarray(ref_layers._sdpa(
-        None, qj, kj, vj, ref_layers.causal_mask(40, 40, window)))
+    want = np.asarray(_ref_sdpa(qj, kj, vj,
+                                ref_layers.causal_mask(40, 40, window)))
     got = layers._sdpa(None, q, k, v, layers.causal_mask(40, 40, window))
     np.testing.assert_allclose(got.numpy(), want, **_tol("f32"))
     flash = ops.flash_attention(q, k, v, causal=True, window=window)
@@ -133,13 +151,14 @@ def test_flash_wrapper_rejects_bad_operands():
 
 
 CARD_CASES = [
-    # (b, t, s, h, kv, d, causal, window, q_offset)
-    (4, 1, 1, 14, 2, 64, False, 0, 0),              # decode prefixes
-    (4, 1, 129, 14, 2, 64, False, 0, 128),
-    (4, 1, 1024, 14, 2, 64, False, 0, 1023),
-    (2, 512, 512, 14, 2, 64, True, 0, 0),           # prefill
-    (1, 512, 512, 14, 2, 64, True, 96, 0),          # window
-    (2, 200, 200, 8, 2, 128, True, 0, 0),           # D 128 GQA, ragged
+    # (b, t, s, h, kv, d, causal, window, q_offset, cache_len)
+    (4, 1, 1, 14, 2, 64, False, 0, 0, 0),           # decode prefixes
+    (4, 1, 129, 14, 2, 64, False, 0, 128, 0),
+    (4, 1, 1024, 14, 2, 64, False, 0, 1023, 0),
+    (4, 1, 405, 14, 2, 64, False, 0, 404, 1024),    # strided cache view
+    (2, 512, 512, 14, 2, 64, True, 0, 0, 0),        # prefill
+    (1, 512, 512, 14, 2, 64, True, 96, 0, 0),       # window
+    (2, 200, 200, 8, 2, 128, True, 0, 0, 0),        # D 128 GQA, ragged
 ]
 
 
@@ -147,9 +166,13 @@ CARD_CASES = [
 @pytest.mark.parametrize("case", CARD_CASES, ids=str)
 @pytest.mark.parametrize("name", ["f32", "bf16"])
 def test_flash_kernel_matches_plain_on_card(case, name, cuda_device):
-    b, t, s, h, kv, d, causal, window, q_offset = case
-    _, ts = _qkv(b, t, s, h, kv, d, name)
+    """With ``cache_len`` > 0, k and v are the prefix views
+    ``cache[:, :s]`` of [b, cache_len, kv, d] buffers, the layout the
+    decode step hands the kernel."""
+    b, t, s, h, kv, d, causal, window, q_offset, cache_len = case
+    _, ts = _qkv(b, t, cache_len or s, h, kv, d, name)
     q, k, v = (x.to(cuda_device) for x in ts)
+    k, v = k[:, :s], v[:, :s]
     before = ops.launch_counts()["flash_attention"]
     out = ops.flash_attention(q, k, v, causal=causal, window=window,
                               q_offset=q_offset)

@@ -8,7 +8,9 @@ its test carries the ``cuda`` marker and skips elsewhere.
 """
 
 import dataclasses
+import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -33,14 +35,24 @@ def _tol(name):
 
 def _inputs(shape, name, seed=0):
     """Same values for both packages: drawn in numpy, rounded once to the
-    working dtype by the JAX side and carried over bit for bit."""
+    working dtype in numpy and carried over bit for bit."""
     rng = np.random.default_rng(seed)
-    jdt, _ = DTYPES[name]
-    xj = jnp.asarray(rng.standard_normal(shape, np.float32)).astype(jdt)
-    sj = jnp.asarray(rng.standard_normal(shape[-1:], np.float32))
-    xt = torch.from_numpy(np.array(xj.astype(jnp.float32))).to(
-        DTYPES[name][1])
-    return xj, sj, xt, torch.from_numpy(np.array(sj))
+    jdt, tdt = DTYPES[name]
+    xj = rng.standard_normal(shape, np.float32).astype(jdt)
+    sj = rng.standard_normal(shape[-1:], np.float32)
+    xt = torch.from_numpy(xj.astype(np.float32)).to(tdt)
+    return xj, sj, xt, torch.from_numpy(sj)
+
+
+# The reference's functions run jitted (one compile per shape, where eager
+# dispatch would compile each of their operations on its own), at XLA's
+# lowest backend optimisation level, which compiles them several times
+# faster; the results agree within the tolerances above all the same.
+_jit = functools.partial(
+    jax.jit, compiler_options={"xla_backend_optimization_level": 0})
+_ref_rmsnorm = _jit(ref_rmsnorm)
+_ref_rmsnorm_ref = _jit(ref_rmsnorm_ref)
+_ref_apply_norm = _jit(ref_layers.apply_norm, static_argnums=1)
 
 
 @pytest.fixture
@@ -55,8 +67,8 @@ def cuda_device():
 @pytest.mark.parametrize("name", ["f32", "bf16"])
 def test_rmsnorm_matches_reference(shape, name):
     xj, sj, xt, st = _inputs(shape, name)
-    pallas = np.asarray(ref_rmsnorm(xj, sj), np.float32)
-    oracle = np.asarray(ref_rmsnorm_ref(xj, sj), np.float32)
+    pallas = np.asarray(_ref_rmsnorm(xj, sj), np.float32)
+    oracle = np.asarray(_ref_rmsnorm_ref(xj, sj), np.float32)
     ops.reset_launch_counts()
     out = ops.rmsnorm(xt, st)
     assert out.dtype == xt.dtype and out.shape == xt.shape
@@ -78,9 +90,9 @@ def test_apply_norm_matches_reference(norm, name):
     xj, sj, xt, st = _inputs((2, 5, cfg.d_model), name, seed=1)
     rng = np.random.default_rng(2)
     bias = rng.standard_normal(cfg.d_model, np.float32)
-    pj = {"scale": sj, "bias": jnp.asarray(bias)}
+    pj = {"scale": sj, "bias": bias}
     pt = {"scale": st, "bias": torch.from_numpy(bias)}
-    want = np.asarray(ref_layers.apply_norm(pj, rcfg, xj), np.float32)
+    want = np.asarray(_ref_apply_norm(pj, rcfg, xj), np.float32)
     got = layers.apply_norm(pt, cfg, xt, backend="torch")
     assert got.dtype == xt.dtype
     np.testing.assert_allclose(got.float().numpy(), want, **_tol(name))

@@ -15,6 +15,8 @@ Tolerances:
 * served tokens: equal.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +30,7 @@ from repro.serving import ServeEngine as RefEngine
 from repro.serving.engine import Request as RefRequest
 from repro_torch.configs import get_config
 from repro_torch.core import convert
+from repro_torch.models import layers
 from repro_torch.models import model_zoo as Z
 from repro_torch.models import params as P
 from repro_torch.serving import ServeEngine
@@ -37,9 +40,13 @@ F32_TOL = dict(rtol=1e-5, atol=1e-4)
 BF16_TOL = dict(rtol=0.12, atol=0.12)
 T = 12
 
-# one compile of each reference program per shape, instead of eager dispatch
-ref_forward = jax.jit(RZ.forward, static_argnums=1)
-ref_decode = jax.jit(RZ.decode_step, static_argnums=1)
+# One compile of each reference program per shape, instead of eager
+# dispatch, at XLA's lowest backend optimisation level, which compiles
+# them several times faster; the tolerances above hold all the same.
+_jit = functools.partial(
+    jax.jit, compiler_options={"xla_backend_optimization_level": 0})
+ref_forward = _jit(RZ.forward, static_argnums=1)
+ref_decode = _jit(RZ.decode_step, static_argnums=1)
 
 
 @pytest.fixture(scope="module")
@@ -50,12 +57,24 @@ def cfgs():
 
 @pytest.fixture(scope="module")
 def ref_params(cfgs):
-    return jax.jit(RZ.init, static_argnums=0)(cfgs[0], jax.random.key(0))
+    return _jit(RZ.init, static_argnums=0)(cfgs[0], jax.random.key(0))
 
 
 def _port(ref_tree, cfg):
     return convert.params_from_arrays(jax.tree.map(np.asarray, ref_tree),
                                       cfg, "cpu")
+
+
+def _f32(ref_tree):
+    """The reference's tree cast to float32 in numpy (exact from bf16)."""
+    return jax.tree.map(lambda a: np.asarray(a).astype(np.float32), ref_tree)
+
+
+def _ref_cache(rcfg, b, s, dtype):
+    """The reference's cache_spec as numpy zeros in ``dtype``."""
+    spec = RZ.cache_spec(rcfg, b, s)
+    return dict(k=np.zeros(spec["k"].shape, dtype),
+                v=np.zeros(spec["v"].shape, dtype), length=np.int32(0))
 
 
 def _tokens(cfg, b, t, seed=1):
@@ -99,16 +118,16 @@ def _decode_all(decode, tokens, cache):
     outs = []
     for i in range(tokens.shape[1]):
         logits, cache = decode(tokens[:, i:i + 1], cache)
-        outs.append(np.asarray(logits[:, 0].float() if isinstance(
-            logits, torch.Tensor) else logits[:, 0].astype(jnp.float32)))
+        outs.append(logits[:, 0].float().numpy() if isinstance(
+            logits, torch.Tensor) else np.asarray(logits)[:, 0].astype(
+                np.float32))
     return np.stack(outs, axis=1)
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_decode_and_forward_match_reference(cfgs, ref_params, dtype):
     rcfg, cfg = cfgs
-    rp = RP.cast_tree(ref_params, jnp.float32) if dtype == "f32" \
-        else ref_params
+    rp = _f32(ref_params) if dtype == "f32" else ref_params
     model = _port(rp, cfg)
     tol = F32_TOL if dtype == "f32" else BF16_TOL
     tok = _tokens(cfg, 2, T)
@@ -118,9 +137,8 @@ def test_decode_and_forward_match_reference(cfgs, ref_params, dtype):
     got = Z.forward(model, cfg, {"tokens": torch.from_numpy(tok).long()})
     np.testing.assert_allclose(got.float().numpy(), want, **tol)
 
-    cdt = jnp.float32 if dtype == "f32" else jnp.bfloat16
-    rc = RP.init_tree(RZ.cache_spec(rcfg, 2, T + 4), jax.random.key(0))
-    rc = dict(rc, k=rc["k"].astype(cdt), v=rc["v"].astype(cdt))
+    rc = _ref_cache(rcfg, 2, T + 4,
+                    np.float32 if dtype == "f32" else jnp.bfloat16)
     pc = P.init_tree(Z.cache_spec(cfg, 2, T + 4), device="cpu")
     pdt = torch.float32 if dtype == "f32" else torch.bfloat16
     pc = dict(pc, k=pc["k"].to(pdt), v=pc["v"].to(pdt))
@@ -136,7 +154,7 @@ def test_long_forward_matches_blockwise_reference(cfgs, ref_params):
     """T = 1024: the reference takes its blockwise attention path
     (``layers.py:280-283``), the port its flash attention."""
     rcfg, cfg = cfgs
-    rp = RP.cast_tree(ref_params, jnp.float32)
+    rp = _f32(ref_params)
     model = _port(rp, cfg)
     tok = _tokens(cfg, 1, 1024, seed=2)
     want = np.asarray(ref_forward(rp, rcfg, {"tokens": jnp.asarray(tok)}),
@@ -204,6 +222,24 @@ def test_unported_archs_and_families_raise(cfgs):
         Z.spec(moe)
 
 
+def test_backend_resolves_from_the_device(cfgs, ref_params):
+    """``backend=None`` is the plain versions on CPU tensors; the kernels
+    need a CUDA device, and the layers take no backend of their own."""
+    _, cfg = cfgs
+    model = _port(ref_params, cfg)
+    tok = torch.from_numpy(_tokens(cfg, 1, 4)).long()
+    got = Z.forward(model, cfg, {"tokens": tok})
+    assert torch.equal(got, Z.forward(model, cfg, {"tokens": tok},
+                                      backend="torch"))
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        Z.forward(model, cfg, {"tokens": tok}, backend="cuda")
+    cache = P.init_tree(Z.cache_spec(cfg, 1, 8), device="cpu")
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        Z.decode_step(model, cfg, tok[:, :1], cache, backend="cuda")
+    with pytest.raises(TypeError, match="backend"):
+        layers.apply_norm(model.final_norm, cfg, got[..., :cfg.d_model])
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -240,4 +276,29 @@ def test_full_width_engine_step_on_card(cuda_device):
     want, _ = Z.decode_step(model, cfg, tok, dict(cache), backend="torch")
     scale = float(want.float().abs().max())
     assert torch.isfinite(got.float()).all()
+    assert float((got.float() - want.float()).abs().max()) <= 2e-2 * scale
+
+
+@pytest.mark.cuda
+def test_model_entry_points_default_to_kernels_on_card(cuda_device):
+    """``forward`` and ``decode_step`` called with no backend on the card
+    go through the CUDA kernels: qwen2-0.5b's widths, two layers."""
+    import dataclasses
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rmsnorm import ops as rops
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), n_layers=2)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    model = Z.init(cfg, gen, cuda_device)
+    batch = Z.make_batch(cfg, seq_len=16, global_batch=2, generator=gen,
+                         device=cuda_device)
+    fops.reset_launch_counts()
+    rops.reset_launch_counts()
+    got = Z.forward(model, cfg, batch)
+    cache = P.init_tree(Z.cache_spec(cfg, 2, 32), device=cuda_device)
+    Z.decode_step(model, cfg, batch["tokens"][:, :1], cache)
+    torch.cuda.synchronize()
+    assert fops.launch_counts()["flash_attention"] == 2 * 2
+    assert rops.launch_counts()["rmsnorm"] == 2 * 5
+    want = Z.forward(model, cfg, batch, backend="torch")
+    scale = float(want.float().abs().max())
     assert float((got.float() - want.float()).abs().max()) <= 2e-2 * scale
