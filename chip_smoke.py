@@ -14,7 +14,7 @@ Phases, each fatal on any error:
    set to 0 just before and read just after, and check its outputs
    against the plain path on the card and against a CPU run;
 3. LM kernels: hold flash attention and RMSNorm against their plain
-   versions on the card (f32 2e-5, bf16 2e-2) at the serve path's decode
+   versions on the card (f32 2e-5, bf16 2e-2) at the serve paths' decode
    shapes and the prefill shapes;
 4. serve qwen2-0.5b at full width through ``ServeEngine`` (8 requests,
    4 slots, random bf16 weights from a seed) on the kernels, with the
@@ -25,7 +25,13 @@ Phases, each fatal on any error:
 6. time each kernel, its plain version and its library call, the serve
    runs and the forward with CUDA events; trace a decode step and the
    forward with torch.profiler (device busy share, kernel launches, the
-   largest kernels and host ops); print the ``kernels`` lines.
+   largest kernels and host ops);
+7. mamba2-2.7b at full width: hold the SSD kernel against its plain
+   version on the card (f32 2e-4, bf16 6e-2) at the forward's shape, a
+   ragged T and two groups; serve the same requests as in 4 from the
+   recurrent state (RMSNorm launches only) with the same replay; the
+   prefill forward at B 2, T 4096 (64 SSD launches) on both backends;
+   times and traces as in 6; print the ``kernels`` line.
 
 Float32 matrix products run in full float32: TF32 is switched off for
 matmuls and cuDNN.  The last line of standard output is
@@ -35,6 +41,7 @@ repository, it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -53,26 +60,32 @@ FP64_FLOPS = 34e12
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
 
-#: Kernel tolerances of the LM kernels (``tests/test_kernels.py:18-20``).
+#: Kernel tolerances of the LM kernels (``tests/test_kernels.py:18-20``)
+#: and of the SSD scan (``tests/test_kernels.py:74-75``).
 LM_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+SSD_TOL = {"float32": 2e-4, "bfloat16": 6e-2}
 
 REPLACES = {
     "count_terms": "src/repro/kernels/count_terms/kernel.py:99",
     "count_layers": "src/repro/kernels/count_terms/kernel.py:146",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:110",
     "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:29",
+    "ssd": "src/repro/kernels/ssd/kernel.py:86",
 }
 SOURCES = {
     "count_terms": "src/repro_torch/csrc/count_terms.cu",
     "count_layers": "src/repro_torch/csrc/count_terms.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "rmsnorm": "src/repro_torch/csrc/rmsnorm.cu",
+    "ssd": "src/repro_torch/csrc/ssd.cu",
 }
 
-# serve run: qwen2-0.5b at full width
+# serve runs (qwen2-0.5b and mamba2-2.7b at full width)
 SLOTS, N_REQUESTS, NEW_TOKENS, MAX_SEQ = 4, 8, 16, 1024
 PROMPT_LEN = (16, 65)          # numpy integers(16, 65): 16..64 tokens
 PREFILL_B, PREFILL_T = 2, 2048
+# mamba2-2.7b's prefill forward: the train_4k length, a batch the card holds
+SSM_B, SSM_T = 2, 4096
 
 
 def fail(msg: str) -> None:
@@ -204,8 +217,9 @@ def build_all() -> None:
     from repro_torch.kernels.count_terms import ops as ct_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
 
-    wrappers = (ct_ops, fa_ops, rms_ops)
+    wrappers = (ct_ops, fa_ops, rms_ops, ssd_ops)
     t0 = time.perf_counter()
     built = _build.build_many([(w.SOURCE, w.NVCC_FLAGS) for w in wrappers])
     for w in wrappers:
@@ -432,7 +446,6 @@ def lm_kernel_checks(dev) -> dict:
     """Each LM kernel against its plain version on the card → max errors."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fa, ref as fa_ref
-    from repro_torch.kernels.rmsnorm import ops as rms, ref as rms_ref
 
     gen = torch.Generator(device=dev).manual_seed(1)
     errs = {"flash_attention": 0.0, "rmsnorm": 0.0}
@@ -469,7 +482,21 @@ def lm_kernel_checks(dev) -> dict:
                 fail(f"flash_attention {label} {dtype} disagrees with its "
                      f"plain version: max abs {err}, max rel {float(rel.max())}")
             errs["flash_attention"] = max(errs["flash_attention"], err)
-        for shape in ((SLOTS, 896), (4096, 896)):
+    errs["rmsnorm"] = rmsnorm_checks("3", ((SLOTS, 896), (4096, 896)), dev)
+    return errs
+
+
+def rmsnorm_checks(tag, shapes, dev) -> float:
+    """RMSNorm against its plain version on the card at ``shapes``, f32
+    and bf16, and the same bits on a second run → max abs error."""
+    import torch
+    from repro_torch.kernels.rmsnorm import ops as rms, ref as rms_ref
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = LM_TOL[str(dtype).split(".")[1]]
+        for shape in shapes:
             x = _rand(shape, gen, dtype, dev)
             sc = torch.randn(shape[-1], generator=gen, device=dev)
             out = rms.rmsnorm(x, sc)
@@ -477,16 +504,16 @@ def lm_kernel_checks(dev) -> dict:
             want = rms_ref.rmsnorm_ref(x, sc)
             diff = (out.float() - want.float()).abs()
             err = float(diff.max())
-            log(f"[3] rmsnorm {list(shape)} {dtype}: max abs err {err:.3e} "
-                f"(tolerance rtol=atol={tol})")
+            log(f"[{tag}] rmsnorm {list(shape)} {dtype}: max abs err "
+                f"{err:.3e} (tolerance rtol=atol={tol})")
             if not bool(torch.isfinite(out).all()) or float(
                     (diff - tol * want.float().abs()).max()) > tol:
                 fail(f"rmsnorm {list(shape)} {dtype} disagrees with its "
                      f"plain version: max abs {err}")
             if not torch.equal(out, rms.rmsnorm(x, sc)):
                 fail("rmsnorm gives other bits on a second run")
-            errs["rmsnorm"] = max(errs["rmsnorm"], err)
-    return errs
+            worst = max(worst, err)
+    return worst
 
 
 def _requests(cfg):
@@ -534,141 +561,262 @@ def logit_tol(want):
     return 2e-2 * want.abs().amax() + 2e-2 * want.abs()
 
 
-def lm_path(dev, card) -> list:
+def _rmsnorm_f64(x, scale, eps):
+    """The plain RMSNorm with its mean of squares in float64: as right as
+    the float32 one, and apart from it only by rounding."""
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import ops as fa, ref as fa_ref
-    from repro_torch.kernels.rmsnorm import ops as rms, ref as rms_ref
-    from repro_torch.models import model_zoo as Z
-    from repro_torch.models import params as P
+    xd = x.double()
+    return (xd * torch.rsqrt((xd * xd).mean(-1, keepdim=True) + eps)
+            * scale.double()).to(x.dtype)
 
-    errs = lm_kernel_checks(dev)
 
-    # ---- 4. serve at full width ------------------------------------------
-    cfg = get_config("qwen2-0.5b")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    model = Z.init(cfg, gen, dev)
+@contextlib.contextmanager
+def rounding_twin():
+    """Within: the plain versions' RMSNorm is :func:`_rmsnorm_f64`."""
+    from repro_torch.models import layers
+    plain = layers._RMSNORM["torch"]
+    layers._RMSNORM["torch"] = _rmsnorm_f64
+    try:
+        yield
+    finally:
+        layers._RMSNORM["torch"] = plain
+
+
+def drift(got, want) -> float:
+    """max |got - want| / max |want| over a step's (or a row's) logits."""
+    return float(((got.float() - want.float()).abs()
+                  / want.float().abs().amax(-1, keepdim=True)).max())
+
+
+def _lm_kernel_ops():
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rmsnorm import ops as rms
+    from repro_torch.kernels.ssd import ops as ssd
+    return fa, rms, ssd
+
+
+def reset_lm_counts() -> None:
+    for mod in _lm_kernel_ops():
+        mod.reset_launch_counts()
+
+
+def lm_counts() -> dict:
+    out = {}
+    for mod in _lm_kernel_ops():
+        out.update(mod.launch_counts())
+    return out
+
+
+def describe(model) -> tuple:
+    """(parameter count, parameter bytes)."""
     n_params = sum(p.numel() for p in model.parameters())
     param_bytes = sum(p.numel() * p.element_size()
                       for p in model.parameters())
-    log(f"[4] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, d_ff {cfg.d_ff}, vocab "
-        f"{cfg.vocab}; {n_params} parameters, {param_bytes / 1e9:.3f} GB "
-        f"(bf16 weights, f32 norm scales)")
+    return n_params, param_bytes
 
-    fa.reset_launch_counts()
-    rms.reset_launch_counts()
+
+def _replay(cfg, model, dev, calls, backend="torch"):
+    """Each decode call's logits when the recorded inputs run again from
+    an empty cache on ``backend``."""
+    import torch
+    from repro_torch.models import model_zoo as Z
+    from repro_torch.models import params as P
+
+    cache = P.init_tree(Z.cache_spec(cfg, SLOTS, MAX_SEQ), device=dev)
+    for tokens, _ in calls:
+        want, cache = Z.decode_step(model, cfg,
+                                    torch.from_numpy(tokens).to(dev), cache,
+                                    backend=backend)
+        yield want[:, -1].float()
+
+
+def serve_check(tag, cfg, model, dev, card, per_call, floor=False) -> dict:
+    """Serve the request set on the kernels, with the counts set to 0 just
+    before and read just after (they must be ``per_call`` times the decode
+    calls), then on the plain versions; replay the kernel run's inputs
+    through the plain decode step and hold every step's logits to bf16
+    tolerance (``logit_tol``) → the run's numbers, its engine and its last
+    decode input.
+
+    With ``floor``, the tolerance is the larger of ``logit_tol`` and twice
+    the rounding floor: the largest drift, over the run, between the plain
+    replay and a second plain replay that differs from it only in rounding
+    (:func:`rounding_twin`).  A deep bf16 model turns one flipped rounding
+    into logit changes above ``logit_tol`` (mamba2-2.7b: PERF.md)."""
+    import torch
+
+    reset_lm_counts()
     eng_k, done_k, wall_k, calls_k = serve_run(cfg, model, dev, "cuda")
-    launches = {**fa.launch_counts(), **rms.launch_counts()}
+    launches = lm_counts()
     n_calls = len(calls_k)
     toks_k = {r.rid: r.out_tokens for r in done_k}
     n_tok = sum(len(t) for t in toks_k.values())
     length = eng_k.cache["length"]
-    log(f"[4] serve on the kernels: {len(done_k)} requests, {n_tok} tokens, "
-        f"{n_calls} decode calls, drained {done_k.drained}, shared length "
-        f"{length} of {MAX_SEQ}; wall {wall_k:.3f} s "
+    log(f"[{tag}] serve {cfg.name} on the kernels: {len(done_k)} requests, "
+        f"{n_tok} tokens, {n_calls} decode calls, drained {done_k.drained}, "
+        f"shared length {length}; wall {wall_k:.3f} s "
         f"({n_tok / wall_k:.2f} tok/s); launches {launches} ({card})")
     if not done_k.drained or len(done_k) != N_REQUESTS:
-        fail("the kernel serve run did not drain")
+        fail(f"the kernel serve run of {cfg.name} did not drain")
     if length >= MAX_SEQ:
         fail(f"shared length {length} reached max_seq {MAX_SEQ}")
-    if launches != {"flash_attention": cfg.n_layers * n_calls,
-                    "rmsnorm": (2 * cfg.n_layers + 1) * n_calls}:
-        fail(f"launch counts {launches} are not {cfg.n_layers} flash and "
-             f"{2 * cfg.n_layers + 1} rmsnorm per decode call x {n_calls}")
+    want_counts = {k: per_call.get(k, 0) * n_calls for k in launches}
+    if launches != want_counts:
+        fail(f"launch counts {launches} are not {per_call} per decode call "
+             f"x {n_calls}")
 
     eng_p, done_p, wall_p, calls_p = serve_run(cfg, model, dev, "torch")
     toks_p = {r.rid: r.out_tokens for r in done_p}
-    log(f"[4] serve on the plain versions: drained {done_p.drained}, "
-        f"{len(calls_p)} decode calls, wall {wall_p:.3f} s "
+    log(f"[{tag}] serve {cfg.name} on the plain versions: drained "
+        f"{done_p.drained}, {len(calls_p)} decode calls, wall {wall_p:.3f} s "
         f"({sum(len(t) for t in toks_p.values()) / wall_p:.2f} tok/s) "
         f"({card})")
     if not done_p.drained or len(done_p) != N_REQUESTS:
-        fail("the plain serve run did not drain")
+        fail(f"the plain serve run of {cfg.name} did not drain")
+    del calls_p, eng_p
 
-    # replay the kernel run's inputs through the plain decode step
-    cache = P.init_tree(Z.cache_spec(cfg, SLOTS, MAX_SEQ), device=dev)
-    worst, compared, near_ties = 0.0, 0, 0
-    for tokens, logits in calls_k:
-        want, cache = Z.decode_step(model, cfg,
-                                    torch.from_numpy(tokens).to(dev), cache,
-                                    backend="torch")
-        got, want = logits[:, -1].float(), want[:, -1].float()
-        tol = logit_tol(want)
+    plain = list(_replay(cfg, model, dev, calls_k))
+    rounding, twin_same = 0.0, 0
+    if floor:
+        with rounding_twin():
+            for t, w in zip(_replay(cfg, model, dev, calls_k), plain):
+                rounding = max(rounding, drift(t, w))
+                twin_same += int((t.argmax(-1) == w.argmax(-1)).sum())
+    worst, compared, near_ties, over, same_tok = 0.0, 0, 0, 0, 0
+    for (_, logits), want in zip(calls_k, plain):
+        got = logits[:, -1].float()
+        same_tok += int((got.argmax(-1) == want.argmax(-1)).sum())
+        bf16_tol = logit_tol(want)
+        tol = torch.maximum(bf16_tol, 2 * rounding * want.abs().amax(
+            -1, keepdim=True))
         excess = float(((got - want).abs() - tol).max())
-        worst = max(worst, float(((got - want).abs()
-                                  / want.abs().amax()).max()))
+        worst = max(worst, drift(got, want))
+        over += int(((got - want).abs() > bf16_tol).any())
         if excess > 0:
-            fail(f"decode logits of the kernels and the plain versions "
-                 f"differ beyond bf16 tolerance by {excess}")
+            fail(f"{cfg.name} decode logits of the kernels and the plain "
+                 f"versions differ beyond tolerance by {excess}")
         top2 = want.topk(2, dim=-1)
         gap = top2.values[:, 0] - top2.values[:, 1]
         sure = gap > 2 * tol.gather(1, top2.indices[:, :1])[:, 0]
         near_ties += int((~sure).sum())
         compared += int(sure.sum())
         if bool((got.argmax(-1) != top2.indices[:, 0])[sure].any()):
-            fail("a kernel decode step picked another token where the plain "
-                 "version's top-2 gap exceeds twice the tolerance")
+            fail(f"a {cfg.name} kernel decode step picked another token "
+                 f"where the plain version's top-2 gap exceeds twice the "
+                 f"tolerance")
     same = sum(toks_k[r] == toks_p[r] for r in toks_k)
-    log(f"[4] {n_calls} decode steps replayed through the plain versions: "
-        f"max |logit diff| / max |logit| {worst:.3e} (tolerance 2e-2); "
+    slot_steps = n_calls * SLOTS
+    floor_note = (f"; rounding floor (plain vs its float64-norm twin) "
+                  f"{rounding:.3e}, tolerance max(2e-2, 2 x floor); steps "
+                  f"beyond 2e-2: {over}; argmax = the plain version's at "
+                  f"{same_tok} of {slot_steps} slot-steps on the kernels, "
+                  f"{twin_same} on the twin" if floor
+                  else " (tolerance 2e-2)")
+    log(f"[{tag}] {n_calls} decode steps replayed through the plain "
+        f"versions: max |logit diff| / max |logit| {worst:.3e}{floor_note}; "
         f"argmax equal at all {compared} slot-steps with a clear top-2 gap "
         f"({near_ties} near ties); served tokens equal for {same} of "
         f"{len(toks_k)} requests")
     if same != len(toks_k) and near_ties == 0:
-        fail("the two serve runs served other tokens without a near tie")
-
-    # decode step time at the end state of the kernel run
+        fail(f"the two {cfg.name} serve runs served other tokens without a "
+             f"near tie")
+    if floor and same_tok < twin_same - 0.1 * slot_steps:
+        fail(f"the kernels pick the plain version's token at {same_tok} of "
+             f"{slot_steps} slot-steps, the rounding twin at {twin_same}")
     last = torch.from_numpy(calls_k[-1][0]).to(dev)
-    state = dict(eng_k.cache)
+    stats = dict(requests=N_REQUESTS, slots=SLOTS, new_tokens=NEW_TOKENS,
+                 max_seq=MAX_SEQ, tokens=n_tok, decode_calls=n_calls,
+                 length=length, wall_s_kernels=wall_k, wall_s_plain=wall_p,
+                 tok_per_s_kernels=n_tok / wall_k,
+                 tok_per_s_plain=n_tok / wall_p, launches=launches,
+                 max_rel_logit_diff=worst, near_ties=near_ties,
+                 tokens_equal=same)
+    if floor:
+        stats.update(rounding_floor=rounding, steps_beyond_2e_2=over,
+                     argmax_same_kernels=same_tok, argmax_same_twin=twin_same)
+    return stats, eng_k, last
+
+
+def decode_times(tag, cfg, model, engine, last, card, param_bytes) -> tuple:
+    """A decode step's CUDA-event time on both backends at the serve run's
+    end state, and a trace of 5 steps on the kernels."""
+    from repro_torch.models import model_zoo as Z
+
+    state = dict(engine.cache)
     step_ms = {b: cuda_ms(lambda: Z.decode_step(model, cfg, last,
                                                 dict(state), backend=b))
                for b in ("cuda", "torch")}
-    log(f"[6] decode step at length {length}: kernels {step_ms['cuda']:.3f} "
-        f"ms, plain {step_ms['torch']:.3f} ms; weight-read bound "
-        f"{param_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({card})")
-    prof = {"decode": profile_ms(lambda: Z.decode_step(
-        model, cfg, last, dict(state), backend="cuda"), steps=5)}
-    del calls_p, eng_p
-    torch.cuda.empty_cache()
+    log(f"[{tag}] {cfg.name} decode step at length {state['length']}: "
+        f"kernels {step_ms['cuda']:.3f} ms, plain {step_ms['torch']:.3f} ms; "
+        f"weight-read bound {param_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
+        f"({card})")
+    prof = profile_ms(lambda: Z.decode_step(model, cfg, last, dict(state),
+                                            backend="cuda"), steps=5)
+    return step_ms, prof
 
-    # ---- 5. prefill forward at full width ----------------------------------
-    batch = Z.make_batch(cfg, seq_len=PREFILL_T, global_batch=PREFILL_B,
-                         generator=torch.Generator(device=dev).manual_seed(2),
-                         device=dev)
-    fa.reset_launch_counts()
-    rms.reset_launch_counts()
+
+def forward_check(tag, cfg, model, dev, card, batch, want_counts,
+                  floor=False) -> tuple:
+    """The prefill forward on the kernels (no backend: the default on the
+    card), counts set to 0 just before and read just after, against the
+    plain versions (tolerance as in :func:`serve_check`, ``floor`` from
+    the forward's own rounding twin); then both timed, and the kernels
+    traced."""
+    import torch
+    from repro_torch.models import model_zoo as Z
+
+    b, t = batch["tokens"].shape
+    reset_lm_counts()
     logits_k = Z.forward(model, cfg, batch)     # on the card: the kernels
     torch.cuda.synchronize()
-    fwd_launches = {**fa.launch_counts(), **rms.launch_counts()}
+    launches = lm_counts()
     logits_p = Z.forward(model, cfg, batch, backend="torch")
-    fwd_err, fwd_excess = 0.0, -1.0
-    for i in range(PREFILL_B):
+    rounding = 0.0
+    if floor:
+        with rounding_twin():
+            twin = Z.forward(model, cfg, batch, backend="torch")
+        rounding = max(float((twin[i].float() - logits_p[i].float()).abs()
+                             .max() / logits_p[i].float().abs().max())
+                       for i in range(b))
+        del twin
+    err, excess = 0.0, -1.0
+    for i in range(b):
         got, want = logits_k[i].float(), logits_p[i].float()
-        fwd_excess = max(fwd_excess,
-                         float(((got - want).abs() - logit_tol(want)).max()))
-        fwd_err = max(fwd_err, float(((got - want).abs()
-                                      / want.abs().amax()).max()))
+        tol = torch.maximum(logit_tol(want),
+                            2 * rounding * want.abs().amax())
+        excess = max(excess, float(((got - want).abs() - tol).max()))
+        err = max(err, float(((got - want).abs() / want.abs().amax()).max()))
     finite = bool(torch.isfinite(logits_k).all())
-    log(f"[5] forward B {PREFILL_B} T {PREFILL_T}: logits "
+    floor_note = (f"; rounding floor {rounding:.3e}, tolerance max(2e-2, "
+                  f"2 x floor)" if floor else " (tolerance 2e-2)")
+    log(f"[{tag}] {cfg.name} forward B {b} T {t}: logits "
         f"{tuple(logits_k.shape)} finite {finite}, max |diff| / max |logit| "
-        f"{fwd_err:.3e} (tolerance 2e-2), launches {fwd_launches}")
-    if (not finite or fwd_excess > 0
-            or tuple(logits_k.shape) != (PREFILL_B, PREFILL_T, cfg.vocab)):
-        fail("the forward on the kernels disagrees with the plain versions")
-    if fwd_launches != {"flash_attention": cfg.n_layers,
-                        "rmsnorm": 2 * cfg.n_layers + 1}:
-        fail(f"forward launch counts {fwd_launches}")
+        f"{err:.3e}{floor_note}, launches {launches}")
+    if (not finite or excess > 0
+            or tuple(logits_k.shape) != (b, t, cfg.vocab)):
+        fail(f"the {cfg.name} forward on the kernels disagrees with the "
+             f"plain versions")
+    if launches != {k: want_counts.get(k, 0) for k in launches}:
+        fail(f"{cfg.name} forward launch counts {launches}, expected "
+             f"{want_counts}")
     del logits_k, logits_p
     torch.cuda.empty_cache()
-    fwd_ms = {b: cuda_ms(lambda: Z.forward(model, cfg, batch, backend=b),
-                         warmup=1) for b in ("cuda", "torch")}
-    log(f"[6] forward B {PREFILL_B} T {PREFILL_T}: kernels "
+    fwd_ms = {bk: cuda_ms(lambda: Z.forward(model, cfg, batch, backend=bk),
+                          warmup=1) for bk in ("cuda", "torch")}
+    log(f"[{tag}] {cfg.name} forward B {b} T {t}: kernels "
         f"{fwd_ms['cuda']:.2f} ms, plain {fwd_ms['torch']:.2f} ms ({card})")
-    prof["forward"] = profile_ms(lambda: Z.forward(model, cfg, batch,
-                                                   backend="cuda"), steps=2)
-    for name, r in prof.items():
-        log(f"[6] profile of the {name} on the kernels: wall "
+    prof = profile_ms(lambda: Z.forward(model, cfg, batch, backend="cuda"),
+                      steps=2)
+    out = dict(batch=b, seq=t, ms=fwd_ms, launches=launches,
+               max_rel_logit_diff=err)
+    if floor:
+        out["rounding_floor"] = rounding
+    return out, prof
+
+
+def log_profiles(tag, name, prof, card) -> None:
+    for what, r in prof.items():
+        log(f"[{tag}] profile of the {name} {what} on the kernels: wall "
             f"{r['wall_ms']:.3f} ms, device busy {r['device_ms']:.3f} ms "
             f"({100 * r['busy_share']:.1f}%), {r['kernel_launches']:.0f} "
             f"kernel launches per call ({card})")
@@ -677,8 +825,76 @@ def lm_path(dev, card) -> list:
         for k, ms, n in r["top_host"]:
             log(f"      host   {ms:9.4f} ms x{n:<5d} {k}")
 
-    # ---- 6. kernel times ----------------------------------------------------
+
+def rmsnorm_times(rows, d, dev) -> dict:
+    """RMSNorm kernel, plain version and ``F.rms_norm`` at [rows, d] bf16."""
+    import torch
     import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import ops as rms, ref as rms_ref
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = _rand((rows, d), g, torch.bfloat16, dev)
+    scale = torch.ones(d, device=dev)
+    sb = scale.to(torch.bfloat16)
+    n_bytes = 2 * rows * d * 2 + 4 * d
+    b_ms, b_by = bound(n_bytes, 4 * rows * d, FP32_FLOPS)
+    return dict(
+        shape=[rows, d],
+        ms=cuda_ms(lambda: rms.rmsnorm(x, scale)),
+        plain_ms=cuda_ms(lambda: rms_ref.rmsnorm_ref(x, scale)),
+        library_ms=cuda_ms(lambda: F.rms_norm(x, (d,), sb, 1e-6)),
+        bound_ms=b_ms, bound_by=b_by, bytes=n_bytes)
+
+
+def log_times(tag, times, card) -> None:
+    for name, r in times.items():
+        lib = r["library_ms"]
+        log(f"[{tag}] {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library "
+            f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']}) ({card})")
+
+
+def lm_path(dev, card) -> tuple:
+    """qwen2-0.5b: phases 3-6 → (kernel rows, launches per kernel)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa, ref as fa_ref
+    from repro_torch.models import model_zoo as Z
+
+    errs = lm_kernel_checks(dev)
+
+    # ---- 4. serve at full width ------------------------------------------
+    cfg = get_config("qwen2-0.5b")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = Z.init(cfg, gen, dev)
+    n_params, param_bytes = describe(model)
+    log(f"[4] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}; {n_params} parameters, {param_bytes / 1e9:.3f} GB "
+        f"(bf16 weights, f32 norm scales)")
+    serve, eng_k, last = serve_check(
+        "4", cfg, model, dev, card,
+        {"flash_attention": cfg.n_layers, "rmsnorm": 2 * cfg.n_layers + 1})
+    step_ms, prof_decode = decode_times("6", cfg, model, eng_k, last, card,
+                                        param_bytes)
+    serve["decode_step_ms"] = step_ms
+    length = serve["length"]
+    del eng_k
+    torch.cuda.empty_cache()
+
+    # ---- 5. prefill forward at full width ----------------------------------
+    batch = Z.make_batch(cfg, seq_len=PREFILL_T, global_batch=PREFILL_B,
+                         generator=torch.Generator(device=dev).manual_seed(2),
+                         device=dev)
+    fwd, prof_fwd = forward_check(
+        "5", cfg, model, dev, card, batch,
+        {"flash_attention": cfg.n_layers, "rmsnorm": 2 * cfg.n_layers + 1})
+    log_profiles("6", cfg.name, {"decode": prof_decode, "forward": prof_fwd},
+                 card)
+
+    # ---- 6. kernel times ----------------------------------------------------
     bf16 = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(3)
     h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -701,38 +917,15 @@ def lm_path(dev, card) -> list:
                                                           causal=causal)),
             library_ms=cuda_ms(lib), bound_ms=b_ms, bound_by=b_by,
             bytes=n_bytes, ops=4 * d * pairs)
-    scale = torch.ones(cfg.d_model, device=dev)
-    for label, n in (("decode", SLOTS), ("prefill", PREFILL_B * PREFILL_T)):
-        x = _rand((n, cfg.d_model), g, bf16, dev)
-        sb = scale.to(bf16)
-        n_bytes = 2 * n * cfg.d_model * 2 + 4 * cfg.d_model
-        b_ms, b_by = bound(n_bytes, 4 * n * cfg.d_model, FP32_FLOPS)
-        times[f"rmsnorm {label}"] = dict(
-            shape=[n, cfg.d_model],
-            ms=cuda_ms(lambda: rms.rmsnorm(x, scale)),
-            plain_ms=cuda_ms(lambda: rms_ref.rmsnorm_ref(x, scale)),
-            library_ms=cuda_ms(lambda: F.rms_norm(x, (cfg.d_model,), sb,
-                                                  1e-6)),
-            bound_ms=b_ms, bound_by=b_by, bytes=n_bytes)
-    for name, r in times.items():
-        log(f"[6] {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
-            f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}) ({card})")
+    times["rmsnorm decode"] = rmsnorm_times(SLOTS, cfg.d_model, dev)
+    times["rmsnorm prefill"] = rmsnorm_times(PREFILL_B * PREFILL_T,
+                                             cfg.d_model, dev)
+    log_times("6", times, card)
 
     log("lm " + json.dumps({
         "card": card, "model": cfg.name, "params": n_params,
-        "param_bytes": param_bytes,
-        "serve": dict(requests=N_REQUESTS, slots=SLOTS,
-                      new_tokens=NEW_TOKENS, max_seq=MAX_SEQ,
-                      tokens=n_tok, decode_calls=n_calls, length=length,
-                      wall_s_kernels=wall_k, wall_s_plain=wall_p,
-                      tok_per_s_kernels=n_tok / wall_k,
-                      tok_per_s_plain=n_tok / wall_p,
-                      decode_step_ms=step_ms, launches=launches,
-                      max_rel_logit_diff=worst, near_ties=near_ties),
-        "forward": dict(batch=PREFILL_B, seq=PREFILL_T, ms=fwd_ms,
-                        launches=fwd_launches, max_rel_logit_diff=fwd_err),
-        "profile": prof,
+        "param_bytes": param_bytes, "serve": serve, "forward": fwd,
+        "profile": {"decode": prof_decode, "forward": prof_fwd},
         "kernels": times, "max_abs_err": errs}))
 
     rows = []
@@ -740,12 +933,213 @@ def lm_path(dev, card) -> list:
         r = times[f"{name} decode"]
         rows.append(dict(
             name=name, route="cuda", source=SOURCES[name],
-            replaces=REPLACES[name], launches=launches[name],
+            replaces=REPLACES[name], launches=0,
             max_abs_err=errs[name], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
-            shape=f"serve decode {r['shape']} bf16"))
-    return rows
+            shape=f"qwen2-0.5b serve decode {r['shape']} bf16"))
+    launches = {k: serve["launches"][k] + fwd["launches"][k]
+                for k in serve["launches"]}
+    return rows, launches
+
+
+# ---------------------------------------------------------------------------
+# 7. mamba2-2.7b: the SSD scan, the recurrent serve path, the forward
+# ---------------------------------------------------------------------------
+
+def ssd_ops_count(b, t, h, p, g, n, chunk) -> float:
+    """Operations the SSD scan needs for these shapes: per chunk of q
+    steps the lower triangle of C Bᵀ once per group, of its decay and of
+    its product with dt·x once per head, the inter-chunk output and the
+    state carried to the next chunk (none after the last)."""
+    q_list = [min(chunk, t - s) for s in range(0, t, chunk)]
+    ops = 0.0
+    for i, q in enumerate(q_list):
+        tri = q * (q + 1) // 2
+        ops += b * g * tri * 2 * n                        # C Bᵀ
+        ops += b * h * (tri * (1 + 2 * p) + q * p)        # decay, L·(dt x)
+        ops += b * h * 2 * q * n * p                      # C · S_prev
+        if i + 1 < len(q_list):
+            ops += b * h * (2 * q * n * p + n * p)        # carry
+    return ops
+
+
+def _ssd_operands(case, dtype, gen, dev):
+    """x, dt, A, b, c for (b, t, h, p, g, n): x, b and c as column slices
+    of one [b, t, h·p + 2·g·n] buffer, as the model's conv output holds
+    them; dt in Mamba-2's initial range [0.001, 0.1] and A = -exp(N(0,
+    0.5²)), so the state carried across chunks matters."""
+    import torch
+    b, t, h, p, g, n = case
+    buf = (torch.randn((b, t, h * p + 2 * g * n), generator=gen, device=dev)
+           * 0.5).to(dtype)
+    x = buf[..., :h * p].reshape(b, t, h, p)
+    bm = buf[..., h * p:h * p + g * n].reshape(b, t, g, n)
+    cm = buf[..., h * p + g * n:].reshape(b, t, g, n)
+    dt = torch.rand((b, t, h), generator=gen, device=dev) * 0.099 + 0.001
+    a = -torch.exp(torch.randn(h, generator=gen, device=dev) * 0.5)
+    return x, dt, a, bm, cm
+
+
+def ssd_kernel_checks(dev) -> float:
+    """The SSD kernel against its plain version on the card → max abs
+    error; prints each case's error and the share of y that the state
+    carried across chunks makes."""
+    import torch
+    from repro_torch.kernels.ssd import ops as ssd, ref as ssd_ref
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    worst = 0.0
+    cases = [((SSM_B, SSM_T, 80, 64, 1, 128), "the forward's shape"),
+             ((SSM_B, 1000, 80, 64, 1, 128), "ragged T=1000"),
+             ((SSM_B, 512, 80, 64, 2, 128), "G=2")]
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = SSD_TOL[str(dtype).split(".")[1]]
+        for case, label in cases:
+            x, dt, a, bm, cm = _ssd_operands(case, dtype, gen, dev)
+            out = ssd.ssd_scan(x, dt, a, bm, cm, chunk=256)
+            torch.cuda.synchronize()
+            want = ssd_ref.ssd_scan_ref(x, dt, a, bm, cm, chunk=256)
+            diff = (out.float() - want.float()).abs()
+            err = float(diff.max())
+            own = torch.cat([ssd_ref.ssd_scan_ref(
+                x[:, i:i + 256], dt[:, i:i + 256], a, bm[:, i:i + 256],
+                cm[:, i:i + 256], chunk=256) for i in range(0, case[1], 256)],
+                dim=1)
+            carried = float((want.float() - own.float()).abs().max()
+                            / want.float().abs().max())
+            log(f"[7] ssd {label} {list(case)} {dtype}: max abs err "
+                f"{err:.3e} (tolerance rtol=atol={tol}); the carried state "
+                f"moves y by {carried:.3f} of max |y|")
+            if not bool(torch.isfinite(out).all()) or float(
+                    (diff - tol * want.float().abs()).max()) > tol:
+                fail(f"ssd {label} {dtype} disagrees with its plain "
+                     f"version: max abs {err}")
+            if not torch.equal(out, ssd.ssd_scan(x, dt, a, bm, cm,
+                                                 chunk=256)):
+                fail("ssd gives other bits on a second run")
+            worst = max(worst, err)
+            del x, dt, a, bm, cm, out, want, own, diff
+            torch.cuda.empty_cache()
+    return worst
+
+
+def ssm_path(dev, card, rms_err) -> tuple:
+    """mamba2-2.7b: phase 7 → (kernel rows, launches per kernel)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd import ops as ssd, ref as ssd_ref
+    from repro_torch.models import mamba2
+    from repro_torch.models import model_zoo as Z
+
+    ssd_err = ssd_kernel_checks(dev)
+    rms_err = max(rms_err, rmsnorm_checks(
+        "7", ((SLOTS, 2560), (SLOTS, 5120), (SSM_B * SSM_T, 5120)), dev))
+
+    # ---- serve at full width from the recurrent state ----------------------
+    cfg = get_config("mamba2-2.7b")
+    model = Z.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    n_params, param_bytes = describe(model)
+    di = cfg.d_model * cfg.ssm_expand
+    log(f"[7] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"inner {di}, {cfg.ssm_heads} SSD heads of {cfg.ssm_head_dim}, state "
+        f"{cfg.ssm_state}, groups {cfg.ssm_groups}, chunk {cfg.ssm_chunk}, "
+        f"vocab {cfg.vocab}; {n_params} parameters, {param_bytes / 1e9:.3f} "
+        f"GB (bf16 weights; f32 A_log, D, dt_bias, gate_norm, norm scales)")
+    serve, eng_k, last = serve_check(
+        "7", cfg, model, dev, card, {"rmsnorm": 2 * cfg.n_layers + 1},
+        floor=True)
+    step_ms, prof_decode = decode_times("7", cfg, model, eng_k, last, card,
+                                        param_bytes)
+    serve["decode_step_ms"] = step_ms
+    state_bytes = eng_k.cache["state"].numel() * 4
+    del eng_k
+    torch.cuda.empty_cache()
+
+    # ---- prefill forward at B 2, T 4096 -------------------------------------
+    # The init's dt_bias 0 makes dt about 0.7 (softplus of ~N(0, 1)), so the
+    # state decays within a few steps; and its conv_w of std 0.02 leaves x,
+    # B and C near 0.02, where the scan adds little to y.  Redraw both from
+    # a seed (dt in Mamba-2's initial range) so the scan and its carry move
+    # the logits this phase compares; the phase checks that they do.
+    g2 = torch.Generator(device=dev).manual_seed(6)
+    for blk in model.layers:
+        dt0 = torch.rand(blk.dt_bias.shape, generator=g2, device=dev)
+        dt0 = dt0 * 0.099 + 0.001
+        blk.dt_bias.copy_(dt0 + torch.log(-torch.expm1(-dt0)))
+        blk.conv_w.copy_(torch.randn(blk.conv_w.shape, generator=g2,
+                                     device=dev) * 0.5)
+    log("[7] forward weights: dt_bias = softplus^-1 of U[0.001, 0.1] and "
+        "conv_w ~ N(0, 0.5^2), redrawn from seed 6 (the reference's init "
+        "has dt_bias 0 and conv_w std 0.02)")
+    batch = Z.make_batch(cfg, seq_len=SSM_T, global_batch=SSM_B,
+                         generator=torch.Generator(device=dev).manual_seed(2),
+                         device=dev)
+    fwd, prof_fwd = forward_check(
+        "7", cfg, model, dev, card, batch,
+        {"ssd": cfg.n_layers, "rmsnorm": 2 * cfg.n_layers + 1}, floor=True)
+    plain = mamba2._SSD["torch"]
+    try:
+        mamba2._SSD["torch"] = lambda x, *a, **k: torch.zeros_like(x)
+        dropped = Z.forward(model, cfg, batch, backend="torch")
+    finally:
+        mamba2._SSD["torch"] = plain
+    with_ssd = Z.forward(model, cfg, batch, backend="torch")
+    moved = float(((dropped.float() - with_ssd.float()).abs()
+                   / with_ssd.float().abs().amax((-2, -1), keepdim=True))
+                  .max())
+    fwd["ssd_moves_logits"] = moved
+    tol = max(2e-2, 2 * fwd["rounding_floor"])
+    log(f"[7] dropping the SSD's output moves the forward's logits by "
+        f"{moved:.3e} of max |logit|; the comparison's tolerance is "
+        f"{tol:.3e} of it (plus 2e-2 of each logit)")
+    if moved <= tol:
+        fail("the SSD's output moves the forward's logits less than the "
+             "comparison's tolerance: the forward would not test the kernel")
+    del dropped, with_ssd
+    torch.cuda.empty_cache()
+    log_profiles("7", cfg.name, {"decode": prof_decode, "forward": prof_fwd},
+                 card)
+
+    # ---- kernel times ---------------------------------------------------------
+    bf16 = torch.bfloat16
+    case = (SSM_B, SSM_T, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups,
+            cfg.ssm_state)
+    x, dt, a, bm, cm = _ssd_operands(case, bf16, torch.Generator(
+        device=dev).manual_seed(7), dev)
+    b_, t_, h, p, g, n = case
+    n_bytes = (2 * b_ * t_ * h * p * 2 + b_ * t_ * h * 4 + h * 4
+               + 2 * b_ * t_ * g * n * 2)
+    n_ops = ssd_ops_count(*case, cfg.ssm_chunk)
+    b_ms, b_by = bound(n_bytes, n_ops, BF16_FLOPS)
+    times = {"ssd forward": dict(
+        shape=list(case), chunk=cfg.ssm_chunk,
+        ms=cuda_ms(lambda: ssd.ssd_scan(x, dt, a, bm, cm, chunk=256)),
+        plain_ms=cuda_ms(lambda: ssd_ref.ssd_scan_ref(x, dt, a, bm, cm,
+                                                      chunk=256)),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
+        ops=n_ops)}
+    del x, dt, a, bm, cm
+    times["rmsnorm decode"] = rmsnorm_times(SLOTS, cfg.d_model, dev)
+    times["rmsnorm gated prefill"] = rmsnorm_times(SSM_B * SSM_T, di, dev)
+    log_times("7", times, card)
+
+    log("lm " + json.dumps({
+        "card": card, "model": cfg.name, "params": n_params,
+        "param_bytes": param_bytes, "state_bytes": state_bytes,
+        "serve": serve, "forward": fwd,
+        "profile": {"decode": prof_decode, "forward": prof_fwd},
+        "kernels": times, "max_abs_err": {"ssd": ssd_err,
+                                          "rmsnorm": rms_err}}))
+    r = times["ssd forward"]
+    rows = [dict(name="ssd", route="cuda", source=SOURCES["ssd"],
+                 replaces=REPLACES["ssd"], launches=0, max_abs_err=ssd_err,
+                 ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                 bound_by=r["bound_by"], library_ms=None,
+                 shape=f"mamba2-2.7b forward {r['shape']} bf16")]
+    launches = {k: serve["launches"][k] + fwd["launches"][k]
+                for k in serve["launches"]}
+    return rows, launches, rms_err
 
 
 def main() -> None:
@@ -775,7 +1169,13 @@ def main() -> None:
     t0 = time.perf_counter()
     build_all()
     rows = dse_path(dev, card)
-    rows += lm_path(dev, card)
+    lm_rows, lm_launches = lm_path(dev, card)
+    rms_row = lm_rows[1]
+    ssm_rows, ssm_launches, rms_row["max_abs_err"] = ssm_path(
+        dev, card, rms_row["max_abs_err"])
+    for row in lm_rows + ssm_rows:
+        row["launches"] = lm_launches[row["name"]] + ssm_launches[row["name"]]
+    rows += lm_rows + ssm_rows
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))

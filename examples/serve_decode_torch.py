@@ -1,10 +1,13 @@
 """Batched serving with continuous batching on the PyTorch port: 6 requests
 through 3 slots (the counterpart of ``examples/serve_decode.py``).
 
-    PYTHONPATH=src python examples/serve_decode_torch.py [--device cpu]
+    PYTHONPATH=src python examples/serve_decode_torch.py [--device cpu] \
+        [--arch qwen2-0.5b | mamba2-2.7b] [--no-smoke]
 
 On a card the attention and RMSNorm run through the port's CUDA kernels;
-on the CPU through their plain torch versions.
+on the CPU through their plain torch versions.  mamba2-2.7b serves from
+its O(1) recurrent state (no SSD scan in decode).  ``--smoke`` (the
+default) serves the reduced config, ``--no-smoke`` the full width.
 """
 
 import argparse
@@ -23,10 +26,15 @@ from repro_torch.serving.engine import Request
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
+                    default=True)
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
 
-    cfg = get_config("qwen2-0.5b").smoke()
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = cfg.smoke()
     params = Z.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     engine = ServeEngine(cfg, params, batch_slots=3, max_seq=96, device=dev)
 
@@ -41,8 +49,8 @@ def main(argv=None):
     dt = time.time() - t0
     total = sum(len(r.out_tokens) for r in done)
     print(f"served {len(done)} requests / {total} tokens in {dt:.2f}s "
-          f"({total / dt:.1f} tok/s on {dev}, backend {engine.backend}, "
-          f"{engine.slots} slots)")
+          f"({total / dt:.1f} tok/s on {dev}, {cfg.name}, backend "
+          f"{engine.backend}, {engine.slots} slots)")
     for r in sorted(done, key=lambda r: r.rid):
         print(f"  req {r.rid}: prompt {r.prompt.tolist()} -> {r.out_tokens}")
 

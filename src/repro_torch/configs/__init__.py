@@ -10,15 +10,16 @@ from __future__ import annotations
 from typing import Dict
 
 from .base import ModelConfig
-from . import qwen2_0_5b
+from . import mamba2_2_7b, qwen2_0_5b
 
 ARCHS: Dict[str, ModelConfig] = {
     "qwen2-0.5b": qwen2_0_5b.CONFIG,
+    "mamba2-2.7b": mamba2_2_7b.CONFIG,
 }
 
 #: Architectures of the JAX package the port cannot run yet.
 NOT_PORTED = ("qwen2-moe-a2.7b", "arctic-480b", "qwen2-vl-72b",
-              "whisper-base", "mamba2-2.7b", "recurrentgemma-9b",
+              "whisper-base", "recurrentgemma-9b",
               "qwen2.5-32b", "stablelm-1.6b", "phi3-mini-3.8b")
 
 

@@ -4,8 +4,10 @@ batching, on the card by default.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --requests 6 --max-new-tokens 8 [--device cpu] [--no-smoke]
 
-``--smoke`` (the default) serves the reduced config; ``--no-smoke``
-serves the full width.  The weights are random, drawn from ``--seed``.
+``--arch`` is any architecture the port runs (``qwen2-0.5b``,
+``mamba2-2.7b``).  ``--smoke`` (the default) serves the reduced config;
+``--no-smoke`` serves the full width.  The weights are random, drawn
+from ``--seed``.
 """
 
 from __future__ import annotations
@@ -58,8 +60,8 @@ def main(argv=None):
     dt = time.time() - t0
     total = sum(len(r.out_tokens) for r in done)
     print(f"served {len(done)} requests / {total} tokens in {dt:.2f}s "
-          f"({total / max(dt, 1e-9):.1f} tok/s, {engine.slots} slots, "
-          f"{dev}, backend {engine.backend})")
+          f"({total / max(dt, 1e-9):.1f} tok/s, {cfg.name}, {engine.slots} "
+          f"slots, {dev}, backend {engine.backend})")
     return done
 
 

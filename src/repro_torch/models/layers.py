@@ -64,7 +64,14 @@ def apply_norm(p, cfg, x: torch.Tensor, *, backend: str) -> torch.Tensor:
         inv = torch.rsqrt(var + _EPS)
         return ((x - mu.to(x.dtype)) * inv.to(x.dtype)
                 * p["scale"].to(x.dtype) + p["bias"].to(x.dtype))
-    return _RMSNORM[backend](x, p["scale"], _EPS)
+    return rmsnorm(x, p["scale"], backend=backend)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, backend: str
+            ) -> torch.Tensor:
+    """RMSNorm over the last axis through the kernel table: float32 math,
+    eps 1e-6, one cast to x's dtype."""
+    return _RMSNORM[backend](x, scale, _EPS)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Model API of the port: the JAX package's ``models/model_zoo.py`` for
-the families the port runs (dense).
+the families the port runs (dense, ssm).
 
 ``spec(cfg)`` → parameter Spec tree; ``init`` → the model's parameters as
 an ``nn.Module``; ``forward`` → logits; ``cache_spec`` / ``decode_step`` →
@@ -15,10 +15,11 @@ import torch
 
 from ..configs.base import ModelConfig
 from . import params as P
-from . import transformer
+from . import mamba2, transformer
 
 _FAMILY = {
     "dense": transformer,
+    "ssm": mamba2,
 }
 
 
@@ -35,8 +36,9 @@ def spec(cfg: ModelConfig):
 
 
 def build(cfg: ModelConfig, tree: Dict[str, Any]) -> torch.nn.Module:
-    """The model's parameters as a module, from a tree of tensors."""
-    return module_for(cfg).Transformer(cfg, tree)
+    """The model's parameters as a module of its family's class, from a
+    tree of tensors."""
+    return module_for(cfg).Model(cfg, tree)
 
 
 def init(cfg: ModelConfig, generator: torch.Generator, device=None

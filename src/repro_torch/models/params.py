@@ -10,9 +10,10 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch import nn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +70,12 @@ def init_tree(tree, generator: Optional[torch.Generator] = None,
         return (x * spec.scale).to(device=device, dtype=spec.dtype)
 
     return _map(tree, mk)
+
+
+def param_dict(tree: Dict[str, torch.Tensor]) -> nn.ParameterDict:
+    """A flat dict of tensors as frozen parameters (inference only)."""
+    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+                             for k, v in tree.items()})
 
 
 def count_params(tree) -> int:

@@ -19,7 +19,7 @@ from torch import nn
 
 from ..device import resolve_backend
 from . import layers as L
-from .params import Spec
+from .params import Spec, param_dict
 
 
 def _check_family(cfg) -> None:
@@ -49,20 +49,15 @@ def spec(cfg) -> Dict[str, Any]:
     }
 
 
-def _param_dict(tree: Dict[str, torch.Tensor]) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                             for k, v in tree.items()})
-
-
 class Block(nn.Module):
     """One pre-norm layer: attention and MLP, each around a residual."""
 
     def __init__(self, tree: Dict[str, Dict[str, torch.Tensor]]):
         super().__init__()
-        self.attn_norm = _param_dict(tree["attn_norm"])
-        self.attn = _param_dict(tree["attn"])
-        self.mlp_norm = _param_dict(tree["mlp_norm"])
-        self.ffn = _param_dict(tree["ffn"])
+        self.attn_norm = param_dict(tree["attn_norm"])
+        self.attn = param_dict(tree["attn"])
+        self.mlp_norm = param_dict(tree["mlp_norm"])
+        self.ffn = param_dict(tree["ffn"])
 
 
 class Transformer(nn.Module):
@@ -75,9 +70,13 @@ class Transformer(nn.Module):
         if len(tree["layers"]) != cfg.n_layers:
             raise ValueError(f"tree has {len(tree['layers'])} layers, config "
                              f"{cfg.name} {cfg.n_layers}")
-        self.embed = _param_dict(tree["embed"])
+        self.embed = param_dict(tree["embed"])
         self.layers = nn.ModuleList(Block(t) for t in tree["layers"])
-        self.final_norm = _param_dict(tree["final_norm"])
+        self.final_norm = param_dict(tree["final_norm"])
+
+
+#: The family's model class, for ``model_zoo.build``.
+Model = Transformer
 
 
 def _block(p: Block, cfg, x, *, positions, backend: str, cache=None):

@@ -214,7 +214,7 @@ def test_port_decode_matches_its_forward(cfgs, ref_params):
 def test_unported_archs_and_families_raise(cfgs):
     import dataclasses
     with pytest.raises(KeyError, match="not ported yet"):
-        get_config("mamba2-2.7b")
+        get_config("whisper-base")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("gpt-5")
     moe = dataclasses.replace(cfgs[1], family="moe")
