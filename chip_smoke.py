@@ -26,12 +26,15 @@ Phases, each fatal on any error:
    runs and the forward with CUDA events; trace a decode step and the
    forward with torch.profiler (device busy share, kernel launches, the
    largest kernels and host ops);
-7. mamba2-2.7b at full width: hold the SSD kernel against its plain
-   version on the card (f32 2e-4, bf16 6e-2) at the forward's shape, a
-   ragged T and two groups; serve the same requests as in 4 from the
-   recurrent state (RMSNorm launches only) with the same replay; the
-   prefill forward at B 2, T 4096 (64 SSD launches) on both backends;
-   times and traces as in 6; print the ``kernels`` line.
+7. mamba2-2.7b at full width: hold the SSD scan, and each of its four
+   passes, against its plain version on the card (f32 2e-4, bf16 6e-2)
+   at the forward's shape, a ragged T and two groups; serve the same
+   requests as in 4 from the recurrent state (RMSNorm launches only) with
+   the same replay; the prefill forward at B 2, T 4096 (64 SSD scan
+   calls) on both backends; times and traces as in 6, each SSD pass's
+   time, registers, spills, shared memory and tensor-core (HMMA)
+   instructions, and the SSD's share of the forward's device time; print
+   the ``kernels`` line.
 
 Float32 matrix products run in full float32: TF32 is switched off for
 matmuls and cuDNN.  The last line of standard output is
@@ -134,11 +137,15 @@ def bound(n_bytes: float, ops: float, peak: float) -> tuple:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def profile_ms(fn, steps: int) -> dict:
+def profile_ms(fn, steps: int, match: tuple = ()) -> dict:
     """Trace ``steps`` calls of fn with torch.profiler → wall ms per call,
     device kernel ms per call (kernels on one stream do not overlap, so
     their sum over the wall time is the device's busy share), kernel
-    launches per call, and the largest device kernels and host ops."""
+    launches per call, the largest device kernels and host ops, and for
+    each substring of ``match`` the device ms per call and per launch of
+    the kernels whose names hold it (the tracer may miss the first
+    kernels of a short window; a time per launch does not depend on
+    how many it saw)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -164,8 +171,14 @@ def profile_ms(fn, steps: int) -> dict:
     host = [e for e in events if e.device_type == DeviceType.CPU]
     top_host = sorted(host, key=lambda e: e.self_cpu_time_total,
                       reverse=True)[:8]
+    hits = {m: [e for e in kernels if m in e.key] for m in match}
     return dict(
         wall_ms=wall, device_ms=busy, busy_share=busy / wall,
+        matched_ms={m: sum(dev_us(e) for e in es) / 1e3 / steps
+                    for m, es in hits.items()},
+        matched_per_launch_ms={
+            m: sum(dev_us(e) for e in es) / 1e3
+            / max(1, sum(e.count for e in es)) for m, es in hits.items()},
         kernel_launches=sum(e.count for e in kernels) / steps,
         top_device=[(e.key[:60], dev_us(e) / 1e3 / steps, e.count // steps)
                     for e in top_dev],
@@ -212,7 +225,8 @@ def ops_per_pair() -> float:
 # 1. build
 # ---------------------------------------------------------------------------
 
-def build_all() -> None:
+def build_all() -> dict:
+    """→ {source file name: (library path, compiler log)}."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.count_terms import ops as ct_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -232,6 +246,7 @@ def build_all() -> None:
             if any(w in line for w in ("Compiling entry", "registers",
                                        "spill", "error")):
                 log(f"      {line.strip()}")
+    return {Path(source).name: v for source, v in built.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -756,7 +771,7 @@ def decode_times(tag, cfg, model, engine, last, card, param_bytes) -> tuple:
 
 
 def forward_check(tag, cfg, model, dev, card, batch, want_counts,
-                  floor=False) -> tuple:
+                  floor=False, match=()) -> tuple:
     """The prefill forward on the kernels (no backend: the default on the
     card), counts set to 0 just before and read just after, against the
     plain versions (tolerance as in :func:`serve_check`, ``floor`` from
@@ -806,7 +821,7 @@ def forward_check(tag, cfg, model, dev, card, batch, want_counts,
     log(f"[{tag}] {cfg.name} forward B {b} T {t}: kernels "
         f"{fwd_ms['cuda']:.2f} ms, plain {fwd_ms['torch']:.2f} ms ({card})")
     prof = profile_ms(lambda: Z.forward(model, cfg, batch, backend="cuda"),
-                      steps=2)
+                      steps=2, match=match)
     out = dict(batch=b, seq=t, ms=fwd_ms, launches=launches,
                max_rel_logit_diff=err)
     if floor:
@@ -981,15 +996,69 @@ def _ssd_operands(case, dtype, gen, dev):
     return x, dt, a, bm, cm
 
 
-def ssd_kernel_checks(dev) -> float:
-    """The SSD kernel against its plain version on the card → max abs
-    error; prints each case's error and the share of y that the state
-    carried across chunks makes."""
+def _held(label, got, want, tol) -> float:
+    """max |got - want|; fails unless finite and within rtol = atol = tol."""
+    import torch
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    if not bool(torch.isfinite(got.float()).all()) or float(
+            (diff - tol * want.float().abs()).max()) > tol:
+        fail(f"ssd {label} disagrees with its plain version: max abs "
+             f"{float(diff.max())}")
+    return float(diff.max())
+
+
+def _same_bits(label, run) -> None:
+    import torch
+    if not torch.equal(run(), run()):
+        fail(f"ssd {label} gives other bits on a second run")
+
+
+def ssd_pass_checks(x, dt, a, bm, cm, tol) -> dict:
+    """Each pass of the SSD kernel against its plain pass on the same
+    inputs (the plain passes' outputs feed the next kernel pass), and the
+    same bits on a second run → {pass: max abs error}.  cum and dt by
+    chunk are float32 whatever x is and are held to f32's tolerance."""
+    import torch
+    from repro_torch.kernels.ssd import ops as ssd, ref as ssd_ref
+
+    q = 256
+    cum, st = ssd_ref._chunk_state_ref(x, dt, a, bm, chunk=q)
+    dtc = ssd_ref._dt_chunks(dt, q)
+    cum_k, dtc_k, st_k = ssd._chunk_state(x, dt, a, bm, chunk=q)
+    errs = {"cum": _held("chunk_state cum", cum_k, cum, SSD_TOL["float32"]),
+            "dt": _held("chunk_state dt", dtc_k, dtc, SSD_TOL["float32"]),
+            "chunk_state": _held("chunk_state S_c", st_k, st, tol)}
+    del cum_k, dtc_k, st_k
+    _same_bits("chunk_state", lambda: ssd._chunk_state(x, dt, a, bm,
+                                                       chunk=q)[2])
+    cb = ssd_ref._cb_ref(bm, cm, chunk=q)
+    keep = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
+    run = lambda: ssd._cb(bm, cm, chunk=q).masked_fill(~keep, 0)  # noqa: E731
+    errs["cb"] = _held("C B^T", run(), cb.masked_fill(~keep, 0), tol)
+    _same_bits("C B^T", run)
+    prev = ssd_ref._state_pass_ref(st, cum)
+    run = lambda: ssd._state_pass(st, cum, x.dtype)  # noqa: E731
+    errs["state_pass"] = _held("state pass", run(), prev, tol)
+    _same_bits("state pass", run)
+    run = lambda: ssd._chunk_scan(x, dtc, cm, cb, cum, prev,  # noqa: E731
+                                  chunk=q)
+    errs["chunk_scan"] = _held("chunk scan", run(), ssd_ref._chunk_scan_ref(
+        x, dt, cm, cb, cum, prev, chunk=q), tol)
+    _same_bits("chunk scan", run)
+    return errs
+
+
+def ssd_kernel_checks(dev) -> tuple:
+    """The SSD kernel, and each of its passes, against its plain version
+    on the card → (max abs error of the scan, {case: per-pass errors});
+    prints each case's errors and the share of y that the state carried
+    across chunks makes."""
     import torch
     from repro_torch.kernels.ssd import ops as ssd, ref as ssd_ref
 
     gen = torch.Generator(device=dev).manual_seed(4)
-    worst = 0.0
+    worst, per_pass = 0.0, {}
     cases = [((SSM_B, SSM_T, 80, 64, 1, 128), "the forward's shape"),
              ((SSM_B, 1000, 80, 64, 1, 128), "ragged T=1000"),
              ((SSM_B, 512, 80, 64, 2, 128), "G=2")]
@@ -1000,31 +1069,120 @@ def ssd_kernel_checks(dev) -> float:
             out = ssd.ssd_scan(x, dt, a, bm, cm, chunk=256)
             torch.cuda.synchronize()
             want = ssd_ref.ssd_scan_ref(x, dt, a, bm, cm, chunk=256)
-            diff = (out.float() - want.float()).abs()
-            err = float(diff.max())
+            err = _held(f"{label} {dtype}", out, want, tol)
             own = torch.cat([ssd_ref.ssd_scan_ref(
                 x[:, i:i + 256], dt[:, i:i + 256], a, bm[:, i:i + 256],
                 cm[:, i:i + 256], chunk=256) for i in range(0, case[1], 256)],
                 dim=1)
             carried = float((want.float() - own.float()).abs().max()
                             / want.float().abs().max())
-            log(f"[7] ssd {label} {list(case)} {dtype}: max abs err "
-                f"{err:.3e} (tolerance rtol=atol={tol}); the carried state "
-                f"moves y by {carried:.3f} of max |y|")
-            if not bool(torch.isfinite(out).all()) or float(
-                    (diff - tol * want.float().abs()).max()) > tol:
-                fail(f"ssd {label} {dtype} disagrees with its plain "
-                     f"version: max abs {err}")
             if not torch.equal(out, ssd.ssd_scan(x, dt, a, bm, cm,
                                                  chunk=256)):
                 fail("ssd gives other bits on a second run")
-            worst = max(worst, err)
-            del x, dt, a, bm, cm, out, want, own, diff
+            del out, want, own
             torch.cuda.empty_cache()
-    return worst
+            errs = ssd_pass_checks(x, dt, a, bm, cm, tol)
+            per_pass[f"{label} {dtype}"] = errs
+            log(f"[7] ssd {label} {list(case)} {dtype}: max abs err "
+                f"{err:.3e} (tolerance rtol=atol={tol}); the carried state "
+                f"moves y by {carried:.3f} of max |y|; passes against their "
+                f"plain passes: " + ", ".join(f"{k} {v:.3e}"
+                                             for k, v in errs.items()))
+            worst = max(worst, err)
+            del x, dt, a, bm, cm
+            torch.cuda.empty_cache()
+    return worst, per_pass
 
 
-def ssm_path(dev, card, rms_err) -> tuple:
+def _cuobjdump():
+    """cuobjdump of the CUDA toolkit or of Triton's package, or None."""
+    import importlib.util
+    import os
+    import shutil
+    found = shutil.which("cuobjdump")
+    cands = [Path(found)] if found else []
+    cands.append(Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+                 / "bin" / "cuobjdump")
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.submodule_search_locations:
+        cands.append(Path(list(spec.submodule_search_locations)[0])
+                     / "backends" / "nvidia" / "bin" / "cuobjdump")
+    return next((str(c) for c in cands if c.is_file()), None)
+
+
+def ssd_build_report(built) -> dict:
+    """Registers and spills of each SSD pass (``-Xptxas=-v`` in the build
+    log), its block's dynamic shared memory, the blocks an SM holds, and
+    its tensor-core instructions (HMMA in ``cuobjdump -sass``, where found)
+    → {"pass dtype": {...}}."""
+    import re
+    import torch
+    from repro_torch.kernels.ssd import ops as ssd
+
+    lib, build_log = built["ssd.cu"]
+    kernels = {f"ssd_{name}_kernel": name for name in ssd.PASSES}
+
+    def key(symbol):
+        for kern, name in kernels.items():
+            if kern in symbol:
+                return f"{name} {'bf16' if 'bfloat16' in symbol else 'f32'}"
+        return None
+
+    report, cur = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = key(m.group(1))
+            if cur:
+                report[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            report[cur]["spill_stores"] = int(m.group(1))
+            report[cur]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[cur]["registers"] = int(m.group(1))
+    if not report:
+        log("[7] ssd build log empty (library built earlier): registers and "
+            "spills not read")
+    for name in ssd.PASSES:
+        for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            r = report.setdefault(f"{name} {tag}", {})
+            r["smem_bytes"], r["blocks_per_sm"] = ssd.pass_resources(name,
+                                                                     dtype)
+    tool = _cuobjdump()
+    if tool is None:
+        log("[7] cuobjdump not found: HMMA instructions not counted")
+    else:
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, timeout=120).stdout
+        cur = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                cur = key(m.group(1))
+                if cur:
+                    report.setdefault(cur, {})["hmma"] = 0
+            elif cur and "HMMA" in line:
+                report[cur]["hmma"] += 1
+        no_tc = [k for k in ("chunk_state bf16", "cb bf16", "chunk_scan bf16")
+                 if not report.get(k, {}).get("hmma")]
+        if no_tc:
+            fail(f"ssd passes with no tensor-core instruction: {no_tc}")
+    for k, r in sorted(report.items()):
+        log(f"[7] ssd pass {k}: {r.get('registers', '?')} registers, spill "
+            f"stores/loads {r.get('spill_stores', '?')}/"
+            f"{r.get('spill_loads', '?')} bytes, {r['smem_bytes']} bytes of "
+            f"dynamic shared memory a block, {r['blocks_per_sm']} blocks an "
+            f"SM, HMMA instructions {r.get('hmma', 'not counted')}")
+    return report
+
+
+def ssm_path(dev, card, rms_err, built) -> tuple:
     """mamba2-2.7b: phase 7 → (kernel rows, launches per kernel)."""
     import torch
     from repro_torch.configs import get_config
@@ -1032,7 +1190,8 @@ def ssm_path(dev, card, rms_err) -> tuple:
     from repro_torch.models import mamba2
     from repro_torch.models import model_zoo as Z
 
-    ssd_err = ssd_kernel_checks(dev)
+    ssd_err, ssd_pass_err = ssd_kernel_checks(dev)
+    ssd_build = ssd_build_report(built)
     rms_err = max(rms_err, rmsnorm_checks(
         "7", ((SLOTS, 2560), (SLOTS, 5120), (SSM_B * SSM_T, 5120)), dev))
 
@@ -1077,7 +1236,19 @@ def ssm_path(dev, card, rms_err) -> tuple:
                          device=dev)
     fwd, prof_fwd = forward_check(
         "7", cfg, model, dev, card, batch,
-        {"ssd": cfg.n_layers, "rmsnorm": 2 * cfg.n_layers + 1}, floor=True)
+        {"ssd": cfg.n_layers, "rmsnorm": 2 * cfg.n_layers + 1}, floor=True,
+        match=("ssd_",) + tuple(f"ssd_{k}_kernel" for k in ssd.PASSES))
+    tol = max(2e-2, 2 * fwd["rounding_floor"])
+    ssd_dev = prof_fwd["matched_ms"]["ssd_"]
+    fwd_pass_ms = {k: prof_fwd["matched_per_launch_ms"][f"ssd_{k}_kernel"]
+                   for k in ssd.PASSES}
+    log(f"[7] forward drift {fwd['max_rel_logit_diff']:.3e} of max |logit| "
+        f"against a tolerance of {tol:.3e} (max(2e-2, 2 x rounding floor "
+        f"{fwd['rounding_floor']:.3e})); the SSD's passes take "
+        f"{ssd_dev:.2f} ms of the traced forward's {prof_fwd['device_ms']:.2f}"
+        f" ms of device time ({100 * ssd_dev / prof_fwd['device_ms']:.1f}%); "
+        f"per launch there: " + ", ".join(f"{k} {v:.4f} ms"
+                                          for k, v in fwd_pass_ms.items()))
     plain = mamba2._SSD["torch"]
     try:
         mamba2._SSD["torch"] = lambda x, *a, **k: torch.zeros_like(x)
@@ -1089,7 +1260,6 @@ def ssm_path(dev, card, rms_err) -> tuple:
                    / with_ssd.float().abs().amax((-2, -1), keepdim=True))
                   .max())
     fwd["ssd_moves_logits"] = moved
-    tol = max(2e-2, 2 * fwd["rounding_floor"])
     log(f"[7] dropping the SSD's output moves the forward's logits by "
         f"{moved:.3e} of max |logit|; the comparison's tolerance is "
         f"{tol:.3e} of it (plus 2e-2 of each logit)")
@@ -1119,7 +1289,35 @@ def ssm_path(dev, card, rms_err) -> tuple:
                                                       chunk=256)),
         library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
         ops=n_ops)}
-    del x, dt, a, bm, cm
+    # each pass alone on the same operands
+    cum, dtc, st = ssd._chunk_state(x, dt, a, bm, chunk=256)
+    cb = ssd._cb(bm, cm, chunk=256)
+    prev = ssd._state_pass(st, cum, bf16)
+    pass_ms = {
+        "chunk_state": cuda_ms(lambda: ssd._chunk_state(x, dt, a, bm,
+                                                        chunk=256)),
+        "cb": cuda_ms(lambda: ssd._cb(bm, cm, chunk=256)),
+        "state_pass": cuda_ms(lambda: ssd._state_pass(st, cum, bf16)),
+        "chunk_scan": cuda_ms(lambda: ssd._chunk_scan(x, dtc, cm, cb, cum,
+                                                      prev, chunk=256))}
+    # the device's own time of each pass within scan calls (the events
+    # above also hold the host's launch work wherever the card waits on it)
+    prof = profile_ms(lambda: ssd.ssd_scan(x, dt, a, bm, cm, chunk=256),
+                      steps=20, match=tuple(f"ssd_{k}_kernel"
+                                            for k in ssd.PASSES))
+    dev_ms = {k: prof["matched_per_launch_ms"][f"ssd_{k}_kernel"]
+              for k in ssd.PASSES}
+    times["ssd forward"].update(passes_ms=pass_ms, passes_device_ms=dev_ms,
+                                device_ms=sum(dev_ms.values()))
+    log(f"[7] ssd forward {list(case)} bf16: scan call "
+        f"{times['ssd forward']['ms']:.4f} ms by events, "
+        f"{sum(dev_ms.values()):.4f} ms on the device in "
+        f"{len(ssd.PASSES)} launches; each pass alone by events: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in pass_ms.items())
+        + "; on the device within the call: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in dev_ms.items())
+        + f" ({card})")
+    del x, dt, a, bm, cm, cum, dtc, st, cb, prev
     times["rmsnorm decode"] = rmsnorm_times(SLOTS, cfg.d_model, dev)
     times["rmsnorm gated prefill"] = rmsnorm_times(SSM_B * SSM_T, di, dev)
     log_times("7", times, card)
@@ -1130,7 +1328,10 @@ def ssm_path(dev, card, rms_err) -> tuple:
         "serve": serve, "forward": fwd,
         "profile": {"decode": prof_decode, "forward": prof_fwd},
         "kernels": times, "max_abs_err": {"ssd": ssd_err,
-                                          "rmsnorm": rms_err}}))
+                                          "rmsnorm": rms_err},
+        "ssd_passes": {"max_abs_err": ssd_pass_err, "build": ssd_build,
+                       "forward_device_ms": ssd_dev,
+                       "forward_per_launch_ms": fwd_pass_ms}}))
     r = times["ssd forward"]
     rows = [dict(name="ssd", route="cuda", source=SOURCES["ssd"],
                  replaces=REPLACES["ssd"], launches=0, max_abs_err=ssd_err,
@@ -1167,12 +1368,12 @@ def main() -> None:
         f"card {torch.cuda.get_device_name(0)} ({card}); TF32 off")
 
     t0 = time.perf_counter()
-    build_all()
+    built = build_all()
     rows = dse_path(dev, card)
     lm_rows, lm_launches = lm_path(dev, card)
     rms_row = lm_rows[1]
     ssm_rows, ssm_launches, rms_row["max_abs_err"] = ssm_path(
-        dev, card, rms_row["max_abs_err"])
+        dev, card, rms_row["max_abs_err"], built)
     for row in lm_rows + ssm_rows:
         row["launches"] = lm_launches[row["name"]] + ssm_launches[row["name"]]
     rows += lm_rows + ssm_rows

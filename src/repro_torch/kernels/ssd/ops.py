@@ -1,16 +1,24 @@
-"""Wrapper of the CUDA SSD chunked-scan kernel: check, launch.
+"""Wrapper of the CUDA SSD chunked scan: check, allocate, launch the passes.
 
 ``ssd_scan(x, dt, A, b, c)`` takes the JAX wrapper's layout — x
 [B, T, H, P], dt [B, T, H], A [H] float32, b and c [B, T, G, N] with G
 dividing H — and returns y [B, T, H, P] in x's dtype.  Unlike the JAX
-wrapper it repeats no group and pads nothing: the kernel reads head h's
-group ``h // (H / G)`` through the strides and masks a ragged last chunk.
+wrapper it repeats no group and pads nothing: the kernels read head h's
+group ``h // (H / G)`` through the strides and mask a ragged last chunk.
 x, b and c may be strided views (column slices of the model's conv
 output) as long as their last axis is contiguous; they are not copied.
 dt is float32 or x's dtype (widened to float32 here, a [B, T, H] copy).
-On CPU tensors it runs the plain version in ``ref.py``; on CUDA tensors
-it launches the kernel of ``src/repro_torch/csrc/ssd.cu`` or raises — no
-fallback.  ``launch_counts()`` rises only where the kernel is launched.
+
+On the card one scan call is four device launches of
+``src/repro_torch/csrc/ssd.cu``, in order on the current stream: the chunk
+state (cum and each chunk's own state S_c), C Bᵀ once per group, the
+state pass (the state entering each chunk, S_prev, in x's dtype) and the
+chunk scan (y).  This wrapper allocates every intermediate; each pass is
+callable alone (``_chunk_state``, ``_cb``, ``_state_pass``,
+``_chunk_scan``) so that it can be held against its plain counterpart in
+``ref.py``.  On CPU tensors ``ssd_scan`` runs the plain version; on CUDA
+tensors it launches the kernels or raises — no fallback.
+``launch_counts()["ssd"]`` rises by one per scan call on the card.
 """
 
 from __future__ import annotations
@@ -26,16 +34,19 @@ from . import ref
 SOURCE = _build.CSRC / "ssd.cu"
 NVCC_FLAGS: Tuple[str, ...] = ()
 
-#: Largest head width, state width and chunk the kernel takes.
+#: Largest head width, state width and chunk the kernels take.
 MAX_P, MAX_N, MAX_CHUNK = 64, 128, 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: The passes of one scan call, in launch order (``ssd_pass_launch``'s
+#: first argument).
+PASSES = ("chunk_state", "cb", "state_pass", "chunk_scan")
 
 _LIB = None
 _LAUNCHES: Dict[str, int] = {"ssd": 0}
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches since the last :func:`reset_launch_counts`."""
+    """Scan calls on the card since the last :func:`reset_launch_counts`."""
     return dict(_LAUNCHES)
 
 
@@ -48,8 +59,20 @@ def _lib():
     if _LIB is None:
         p, i32 = ctypes.c_void_p, ctypes.c_int
         _LIB = _build.load(SOURCE, NVCC_FLAGS, {
-            "ssd_scan_launch": [i32, p, p, p, p, p, p] + [i32] * 7 + [p, p]})
+            "ssd_pass_launch": [i32, i32, p, p, p, p],
+            "ssd_scan_launch": [i32, p, p, p, p, p],
+            "ssd_pass_resources": [i32, i32, p]})
     return _LIB
+
+
+def pass_resources(name: str, dtype: torch.dtype) -> Tuple[int, int]:
+    """(dynamic shared memory of one block in bytes, blocks that one SM of
+    the current card holds at once) of pass ``name``."""
+    out = (ctypes.c_int * 2)()
+    rc = _lib().ssd_pass_resources(PASSES.index(name), _DTYPES[dtype], out)
+    if rc != 0:
+        raise RuntimeError(f"ssd {name} pass resources: CUDA error {rc}")
+    return out[0], out[1]
 
 
 def _check(x, dt, A, b, c, chunk) -> None:
@@ -78,6 +101,119 @@ def _check(x, dt, A, b, c, chunk) -> None:
         raise ValueError(f"ssd_scan takes chunk >= 1, got {chunk}")
 
 
+def _strides(x=None, dt=None, b=None, c=None):
+    """The 12 element strides the C launchers take (0 for an operand a pass
+    does not read)."""
+    out = [0] * 12
+    for i, v in enumerate((x, dt, b, c)):
+        if v is not None:
+            out[3 * i:3 * i + 3] = v.stride()[:3]
+    return out
+
+
+def _run(dtype, ptrs, dims, strides, device, index=None) -> None:
+    """Launch pass ``PASSES[index]`` — or, with no index, the four passes
+    in order, each checked before the next — on the current stream; raises
+    on a non-zero CUDA error.  ``ptrs``: the 11 device addresses of
+    ``ssd_pass_launch``; ``dims``: (batch, t, h, p, g, n, chunk)."""
+    args = ((ctypes.c_void_p * 11)(*ptrs), (ctypes.c_int * 7)(*dims),
+            (ctypes.c_int64 * 12)(*strides))
+    failed = ctypes.c_int(index or 0)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        if index is None:
+            rc = _lib().ssd_scan_launch(_DTYPES[dtype], *args, stream,
+                                        ctypes.byref(failed))
+        else:
+            rc = _lib().ssd_pass_launch(index, _DTYPES[dtype], *args, stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd {PASSES[failed.value]} pass launch failed: "
+                           f"CUDA error {rc}")
+
+
+def _launch(name: str, dtype: torch.dtype, dims, *, x=None, dt=None, A=None,
+            b=None, c=None, y=None, cum=None, states=None, cb=None,
+            prev=None, dtc=None) -> None:
+    """Check the operands of pass ``name`` and launch it alone."""
+    operands = (x, dt, A, b, c, y, cum, states, cb, prev, dtc)
+    tensors = [v for v in operands if v is not None]
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(v.device != dev for v in tensors):
+        raise ValueError(f"the ssd {name} pass takes operands on one CUDA "
+                         f"device, got {[v.device for v in tensors]}")
+    for v in (cum, states, cb, dtc):
+        if v is not None and (v.dtype != torch.float32
+                              or not v.is_contiguous()):
+            raise ValueError(f"the ssd {name} pass takes contiguous float32 "
+                             f"cum, dt by chunk, states and C Bᵀ")
+    for v in (x, b, c):
+        if v is not None and v.stride(-1) != 1:
+            raise ValueError(f"the ssd {name} pass takes x, b, c with a "
+                             f"contiguous last axis")
+    if prev is not None and (prev.dtype != dtype or not prev.is_contiguous()):
+        raise ValueError(f"the ssd {name} pass takes a contiguous S_prev in "
+                         f"{dtype}")
+    _run(dtype, [0 if v is None else v.data_ptr() for v in operands], dims,
+         _strides(x, dt, b, c), dev, PASSES.index(name))
+
+
+def _dims(x, b, chunk):
+    bsz, t, h, p = x.shape
+    return bsz, t, h, p, b.shape[2], b.shape[3], chunk
+
+
+def _chunk_state(x, dt, A, b, *, chunk):
+    """Pass 1 → (cum [B, H, nc, Q], dt in cum's layout (0 past a ragged
+    end), each chunk's own state [B, nc, H, P, N]), all float32.  dt
+    float32."""
+    bsz, t, h, p = x.shape
+    nc = -(-t // chunk)
+    cum = torch.empty((bsz, h, nc, chunk), dtype=torch.float32,
+                      device=x.device)
+    dtc = torch.empty_like(cum)
+    states = torch.empty((bsz, nc, h, p, b.shape[3]), dtype=torch.float32,
+                         device=x.device)
+    _launch("chunk_state", x.dtype, _dims(x, b, chunk), x=x, dt=dt, A=A, b=b,
+            cum=cum, states=states, dtc=dtc)
+    return cum, dtc, states
+
+
+def _cb(b, c, *, chunk):
+    """Pass 2 → C Bᵀ [B, nc, G, Q, Q] float32, once per (batch, chunk,
+    group); only k <= q is written."""
+    bsz, t, g, n = b.shape
+    nc = -(-t // chunk)
+    cb = torch.empty((bsz, nc, g, chunk, chunk), dtype=torch.float32,
+                     device=b.device)
+    # the pass reads no x: one head a group and P 1 stand in for its shape
+    _launch("cb", b.dtype, (bsz, t, g, 1, g, n, chunk), b=b, c=c, cb=cb)
+    return cb
+
+
+def _state_pass(states, cum, dtype=torch.float32):
+    """Pass 3: each chunk's own states [B, nc, H, P, N] (float32) → the
+    states entering each chunk, S_prev, same shape in ``dtype`` (the
+    carry itself runs in float32)."""
+    bsz, nc, h, p, n = states.shape
+    chunk = cum.shape[-1]
+    prev = torch.empty(states.shape, dtype=dtype, device=states.device)
+    # the pass needs only (B, nc, H, P, N, Q); T = nc·Q and G = 1 stand in
+    _launch("state_pass", dtype, (bsz, nc * chunk, h, p, 1, n, chunk),
+            cum=cum, states=states, prev=prev)
+    return prev
+
+
+def _chunk_scan(x, dtc, c, cb, cum, prev, *, chunk):
+    """Pass 4 → y [B, T, H, P] in x's dtype.  ``dtc``: dt in cum's layout
+    (pass 1's second output, or ``ref._dt_chunks``); ``prev`` (S_prev) is
+    rounded to x's dtype here if it is not in it already, as the state pass
+    would have written it."""
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    _launch("chunk_scan", x.dtype, _dims(x, c, chunk), x=x, c=c, y=y,
+            cum=cum, cb=cb, prev=prev.to(x.dtype).contiguous(), dtc=dtc)
+    return y
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              b: torch.Tensor, c: torch.Tensor, *, chunk: int = 256
              ) -> torch.Tensor:
@@ -94,23 +230,28 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     bsz, t, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     q = min(chunk, t)
-    if p > MAX_P or n > MAX_N or q > MAX_CHUNK or bsz * h > 2 ** 31 - 1:
+    if p > MAX_P or n > MAX_N or q > MAX_CHUNK:
         raise ValueError(f"ssd_scan's kernel takes P <= {MAX_P}, N <= "
                          f"{MAX_N} and chunk <= {MAX_CHUNK}, got P={p}, "
                          f"N={n}, chunk={q}")
     x, b, c = (a if a.stride(-1) == 1 else a.contiguous() for a in (x, b, c))
     dt = dt.float()
     A = A.contiguous()
-    y = torch.empty((bsz, t, h, p), dtype=x.dtype, device=x.device)
-    strides = (ctypes.c_int64 * 12)(*x.stride()[:3], *dt.stride(),
-                                    *b.stride()[:3], *c.stride()[:3])
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        rc = lib.ssd_scan_launch(
-            _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),
-            b.data_ptr(), c.data_ptr(), y.data_ptr(), bsz, t, h, p, g, n, q,
-            strides, torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"ssd kernel launch failed: CUDA error {rc}")
+    # the float32 intermediates (cum, dt by chunk, S_c, C Bᵀ) in one
+    # buffer, each part 256-byte aligned; S_prev in x's dtype; then the
+    # four passes in one call
+    nc = -(-t // q)
+    offs = [0]
+    for size in (bsz * h * nc * q,) * 2 + (bsz * nc * h * p * n,
+                                           bsz * nc * g * q * q):
+        offs.append(offs[-1] + -(-size // 64) * 64)
+    ws = torch.empty(offs[-1], dtype=torch.float32, device=x.device)
+    cum, dtc, states, cb = (ws.data_ptr() + 4 * o for o in offs[:4])
+    prev = torch.empty((bsz, nc, h, p, n), dtype=x.dtype, device=x.device)
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    _run(x.dtype, [x.data_ptr(), dt.data_ptr(), A.data_ptr(), b.data_ptr(),
+                   c.data_ptr(), y.data_ptr(), cum, states, cb,
+                   prev.data_ptr(), dtc],
+         (bsz, t, h, p, g, n, q), _strides(x, dt, b, c), x.device)
     _LAUNCHES["ssd"] += 1
     return y

@@ -118,6 +118,67 @@ def test_carry_across_chunks_matches_reference():
     assert carried > 0.2, float(carried)
 
 
+def _single_pass(x, dt, A, b, c, *, chunk):
+    """The plain version as one function, as it stood before it was cut
+    into the kernel's passes: the yardstick of the test below."""
+    bsz, t, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    r = h // g
+    q = min(chunk, t)
+    nc = -(-t // q)
+    pad = nc * q - t
+
+    def chunks(a):
+        a = a.float()
+        if pad:
+            a = torch.nn.functional.pad(a, (0, 0) * (a.dim() - 2) + (0, pad))
+        return a.reshape(bsz, nc, q, *a.shape[2:])
+
+    xc = chunks(x).reshape(bsz, nc, q, g, r, p)
+    dtc = chunks(dt)
+    bc, cc = chunks(b), chunks(c)
+    cum = torch.cumsum(dtc * A.float(), dim=2)
+    total = cum[:, :, -1]
+    xdt = xc * dtc.reshape(bsz, nc, q, g, r, 1)
+    cum_h = cum.permute(0, 1, 3, 2)
+    seg = cum_h[..., :, None] - cum_h[..., None, :]
+    keep = torch.ones(q, q, dtype=torch.bool).tril()
+    lmat = torch.exp(seg.masked_fill(~keep, float("-inf")))
+    cb = torch.einsum("bcqgn,bckgn->bcgqk", cc, bc)
+    w = cb[:, :, :, None] * lmat.reshape(bsz, nc, g, r, q, q)
+    y = torch.einsum("bcgrqk,bckgrp->bcqgrp", w, xdt)
+    decay_out = torch.exp(total[:, :, None] - cum)
+    xo = xdt * decay_out.reshape(bsz, nc, q, g, r, 1)
+    states = torch.einsum("bcqgrp,bcqgn->bcgrpn", xo, bc)
+    decay = torch.exp(total).reshape(bsz, nc, g, r, 1, 1)
+    s = torch.zeros_like(states[:, 0])
+    prev = []
+    for ci in range(nc):
+        prev.append(s)
+        s = s * decay[:, ci] + states[:, ci]
+    prev = torch.stack(prev, dim=1)
+    y_off = torch.einsum("bcqgn,bcgrpn->bcqgrp", cc, prev)
+    y = y + y_off * torch.exp(cum).reshape(bsz, nc, q, g, r, 1)
+    return y.reshape(bsz, nc * q, h, p)[:, :t].to(x.dtype)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=["g2", "g1", "ragged_g4"])
+def test_passes_compose_to_single_pass(shape):
+    """The plain passes the card holds each kernel pass against compose to
+    the single-pass plain version, in float32 within 1e-6."""
+    _, tops = _inputs(shape, "f32", dt_range=(1e-3, 0.1))
+    chunk = shape[-1]
+    want = _single_pass(*tops, chunk=chunk)
+    x, dt, a, bb, cc = tops
+    cum, states = ref._chunk_state_ref(x, dt, a, bb, chunk=chunk)
+    prev = ref._state_pass_ref(states, cum)
+    got = ref._chunk_scan_ref(x, dt, cc, ref._cb_ref(bb, cc, chunk=chunk),
+                              cum, prev, chunk=chunk)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(ref.ssd_scan_ref(*tops, chunk=chunk), want,
+                               rtol=1e-6, atol=1e-6)
+
+
 def _bad(case):
     """Operands for the wrapper with one thing wrong (``case``)."""
     x = torch.zeros(2, 16, 4, 8)
@@ -186,3 +247,55 @@ def test_kernel_matches_plain_on_card(cuda_device, shape, name):
     assert torch.isfinite(got.float()).all()
     torch.testing.assert_close(got.float(), want.float(), **tol)
     assert torch.equal(got, ops.ssd_scan(xs, dt, a, bs, cs, chunk=chunk))
+
+
+def _sliced(tops, shape, dev):
+    """The operands on the card, x, b and c as column slices of one buffer
+    as the model passes them, dt in float32."""
+    x, dt, a, bb, cc = (t.to(dev) for t in tops)
+    b_, t_, h, p, g, n, _ = shape
+    buf = torch.cat([x.reshape(b_, t_, h * p), bb.reshape(b_, t_, g * n),
+                     cc.reshape(b_, t_, g * n)], dim=-1)
+    return (buf[..., :h * p].reshape(b_, t_, h, p), dt.float(), a,
+            buf[..., h * p:h * p + g * n].reshape(b_, t_, g, n),
+            buf[..., h * p + g * n:].reshape(b_, t_, g, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (2, 4096, 80, 64, 1, 128, 256),       # the forward's shape
+    (2, 1000, 80, 64, 1, 128, 256)],      # ragged T
+    ids=["forward", "ragged"])
+@pytest.mark.parametrize("name", ["f32", "bf16"])
+def test_passes_match_plain_on_card(cuda_device, shape, name):
+    """Each of the kernel's four passes against its plain pass on the same
+    inputs (the plain passes' outputs feed the next kernel pass), within
+    the scan's tolerance — cum and dt by chunk, which are float32 whatever
+    x is, within f32's — and the same bits on a second run."""
+    _, tops = _inputs(shape, name, dt_range=(1e-3, 0.1))
+    x, dt, a, bb, cc = _sliced(tops, shape, cuda_device)
+    chunk, tol = shape[-1], _tol(name)
+
+    def same(run, want, **kw):
+        got = run()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **kw)
+        assert torch.equal(got, run())
+
+    cum, states = ref._chunk_state_ref(x, dt, a, bb, chunk=chunk)
+    same(lambda: ops._chunk_state(x, dt, a, bb, chunk=chunk)[0], cum,
+         **_tol("f32"))
+    dtc = ref._dt_chunks(dt, chunk)
+    same(lambda: ops._chunk_state(x, dt, a, bb, chunk=chunk)[1], dtc,
+         **_tol("f32"))
+    same(lambda: ops._chunk_state(x, dt, a, bb, chunk=chunk)[2], states,
+         **tol)
+    cb = ref._cb_ref(bb, cc, chunk=chunk)
+    keep = torch.ones(chunk, chunk, dtype=torch.bool,
+                      device=cuda_device).tril()
+    same(lambda: ops._cb(bb, cc, chunk=chunk).masked_fill(~keep, 0),
+         cb.masked_fill(~keep, 0), **tol)
+    prev = ref._state_pass_ref(states, cum)
+    same(lambda: ops._state_pass(states, cum, x.dtype), prev, **tol)
+    same(lambda: ops._chunk_scan(x, dtc, cc, cb, cum, prev, chunk=chunk),
+         ref._chunk_scan_ref(x, dt, cc, cb, cum, prev, chunk=chunk), **tol)
