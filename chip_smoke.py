@@ -15,17 +15,22 @@ Phases, each fatal on any error:
    against the plain path on the card and against a CPU run;
 3. LM kernels: hold flash attention and RMSNorm against their plain
    versions on the card (f32 2e-5, bf16 2e-2) at the serve paths' decode
-   shapes and the prefill shapes;
+   shapes and the prefill shapes, with the route each flash case took
+   and the same bits on a second call; the flash kernels' registers,
+   spills, shared memory and tensor-core (HMMA) instructions;
 4. serve qwen2-0.5b at full width through ``ServeEngine`` (8 requests,
    4 slots, random bf16 weights from a seed) on the kernels, with the
-   counts set to 0 just before and read just after, then on the plain
-   versions; replay the kernel run's inputs through the plain decode step
-   and hold every step's logits to bf16 tolerance;
-5. the prefill forward at full width (B 2, T 2048) on both backends;
-6. time each kernel, its plain version and its library call, the serve
-   runs and the forward with CUDA events; trace a decode step and the
-   forward with torch.profiler (device busy share, kernel launches, the
-   largest kernels and host ops);
+   counts set to 0 just before and read just after (every flash call on
+   the CUDA-core route), then on the plain versions; replay the kernel
+   run's inputs through the plain decode step and hold every step's
+   logits to bf16 tolerance;
+5. the prefill forward at full width (B 2, T 2048) on both backends,
+   every flash call on the tensor-core route;
+6. time each kernel, its plain version and its library call (flash
+   prefill at D 64 and D 128), the serve runs and the forward with CUDA
+   events; trace a decode step and the forward with torch.profiler
+   (device busy share, kernel launches, the largest kernels and host
+   ops, flash attention's share of the forward);
 7. mamba2-2.7b at full width: hold the SSD scan, and each of its four
    passes, against its plain version on the card (f32 2e-4, bf16 6e-2)
    at the forward's shape, a ragged T and two groups; serve the same
@@ -476,26 +481,37 @@ def lm_kernel_checks(dev) -> dict:
         (2, 2048, 2048, 14, 2, 64, True, 0, 0, 0, "prefill T=2048 causal"),
         (2, 512, 512, 14, 2, 64, True, 96, 0, 0, "window T=512 w=96"),
         (2, 512, 512, 16, 2, 128, True, 0, 0, 0, "D=128 GQA T=512 causal"),
+        (2, 1000, 1000, 14, 2, 64, True, 0, 0, 0, "ragged T=1000 causal"),
+        (2, 64, 1024, 14, 2, 64, True, 0, 960, 2048,
+         "T=64 at offset 960 of a 2048-row cache view"),
     ]
     for dtype in (torch.float32, torch.bfloat16):
         tol = LM_TOL[str(dtype).split(".")[1]]
         for case in flash_cases:
             causal, window, q_off, cache_len, label = case[6:]
             q, k, v = _flash_operands(case, dtype, gen, dev, cache_len)
-            out = fa.flash_attention(q, k, v, causal=causal, window=window,
-                                     q_offset=q_off)
+            fa.reset_route_counts()
+            run = lambda: fa.flash_attention(                 # noqa: E731
+                q, k, v, causal=causal, window=window, q_offset=q_off)
+            out = run()
             torch.cuda.synchronize()
+            route = [r for r, n in fa.route_counts().items() if n]
             want = fa_ref.attention_ref(q, k, v, causal=causal,
                                         window=window, q_offset=q_off)
             diff = (out.float() - want.float()).abs()
             rel = diff / want.float().abs().clamp_min(1.0)
             err = float(diff.max())
-            log(f"[3] flash_attention {label} {dtype}: max abs err {err:.3e} "
-                f"(tolerance rtol=atol={tol})")
+            log(f"[3] flash_attention {label} {dtype}: route {route}, max "
+                f"abs err {err:.3e} (tolerance rtol=atol={tol})")
             if not bool(torch.isfinite(out).all()) or float(
                     (diff - tol * want.float().abs()).max()) > tol:
                 fail(f"flash_attention {label} {dtype} disagrees with its "
                      f"plain version: max abs {err}, max rel {float(rel.max())}")
+            if route != [fa._route(dtype, case[1], case[5])]:
+                fail(f"flash_attention {label} {dtype} took route {route}")
+            if not torch.equal(out, run()):
+                fail(f"flash_attention {label} {dtype} gives other bits on a "
+                     f"second run")
             errs["flash_attention"] = max(errs["flash_attention"], err)
     errs["rmsnorm"] = rmsnorm_checks("3", ((SLOTS, 896), (4096, 896)), dev)
     return errs
@@ -613,6 +629,12 @@ def _lm_kernel_ops():
 def reset_lm_counts() -> None:
     for mod in _lm_kernel_ops():
         mod.reset_launch_counts()
+    _lm_kernel_ops()[0].reset_route_counts()
+
+
+def flash_routes() -> dict:
+    """Flash-attention launches by route since :func:`reset_lm_counts`."""
+    return _lm_kernel_ops()[0].route_counts()
 
 
 def lm_counts() -> dict:
@@ -663,6 +685,7 @@ def serve_check(tag, cfg, model, dev, card, per_call, floor=False) -> dict:
     reset_lm_counts()
     eng_k, done_k, wall_k, calls_k = serve_run(cfg, model, dev, "cuda")
     launches = lm_counts()
+    routes = flash_routes()
     n_calls = len(calls_k)
     toks_k = {r.rid: r.out_tokens for r in done_k}
     n_tok = sum(len(t) for t in toks_k.values())
@@ -744,6 +767,7 @@ def serve_check(tag, cfg, model, dev, card, per_call, floor=False) -> dict:
                  length=length, wall_s_kernels=wall_k, wall_s_plain=wall_p,
                  tok_per_s_kernels=n_tok / wall_k,
                  tok_per_s_plain=n_tok / wall_p, launches=launches,
+                 flash_routes=routes,
                  max_rel_logit_diff=worst, near_ties=near_ties,
                  tokens_equal=same)
     if floor:
@@ -785,6 +809,7 @@ def forward_check(tag, cfg, model, dev, card, batch, want_counts,
     logits_k = Z.forward(model, cfg, batch)     # on the card: the kernels
     torch.cuda.synchronize()
     launches = lm_counts()
+    routes = flash_routes()
     logits_p = Z.forward(model, cfg, batch, backend="torch")
     rounding = 0.0
     if floor:
@@ -806,7 +831,7 @@ def forward_check(tag, cfg, model, dev, card, batch, want_counts,
                   f"2 x floor)" if floor else " (tolerance 2e-2)")
     log(f"[{tag}] {cfg.name} forward B {b} T {t}: logits "
         f"{tuple(logits_k.shape)} finite {finite}, max |diff| / max |logit| "
-        f"{err:.3e}{floor_note}, launches {launches}")
+        f"{err:.3e}{floor_note}, launches {launches}, flash routes {routes}")
     if (not finite or excess > 0
             or tuple(logits_k.shape) != (b, t, cfg.vocab)):
         fail(f"the {cfg.name} forward on the kernels disagrees with the "
@@ -823,7 +848,7 @@ def forward_check(tag, cfg, model, dev, card, batch, want_counts,
     prof = profile_ms(lambda: Z.forward(model, cfg, batch, backend="cuda"),
                       steps=2, match=match)
     out = dict(batch=b, seq=t, ms=fwd_ms, launches=launches,
-               max_rel_logit_diff=err)
+               flash_routes=routes, max_rel_logit_diff=err)
     if floor:
         out["rounding_floor"] = rounding
     return out, prof
@@ -864,21 +889,56 @@ def rmsnorm_times(rows, d, dev) -> dict:
 def log_times(tag, times, card) -> None:
     for name, r in times.items():
         lib = r["library_ms"]
+        dev = (f" (on the device: kernel {r['device_ms']:.4f} ms, library "
+               f"{r['library_device_ms']:.4f} ms)"
+               if "library_device_ms" in r else "")
         log(f"[{tag}] {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library "
             f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
-            f"{r['bound_ms']:.5f} ms ({r['bound_by']}) ({card})")
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']}){dev} ({card})")
 
 
-def lm_path(dev, card) -> tuple:
-    """qwen2-0.5b: phases 3-6 → (kernel rows, launches per kernel)."""
+def flash_times(case, dev) -> dict:
+    """Flash kernel, plain version and ``scaled_dot_product_attention``
+    at (b, t, s, h, kv, d, causal) in bf16, with the bound: the larger of
+    q, k, v and o over the HBM rate and 4·d operations per visible (row,
+    key) pair over the bf16 tensor-core peak."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fa, ref as fa_ref
+
+    b, t, s, h, kvh, d, causal = case
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = _flash_operands(case, torch.bfloat16, g, dev)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib = lambda: F.scaled_dot_product_attention(               # noqa: E731
+        qt, kt, vt, is_causal=causal, enable_gqa=True)
+    kern = lambda: fa.flash_attention(q, k, v, causal=causal)  # noqa: E731
+    pairs = b * h * (t * (t + 1) // 2 if causal else t * s)
+    n_bytes = 2 * (2 * b * t * h * d + 2 * b * s * kvh * d)
+    b_ms, b_by = bound(n_bytes, 4 * d * pairs, BF16_FLOPS)
+    # cuda_ms holds the host's launch work wherever the card waits on it;
+    # the traced device time of a call does not
+    return dict(
+        shape=[b, t, s, h, kvh, d], causal=causal,
+        route=fa._route(torch.bfloat16, t, d),
+        ms=cuda_ms(kern),
+        plain_ms=cuda_ms(lambda: fa_ref.attention_ref(q, k, v,
+                                                      causal=causal)),
+        library_ms=cuda_ms(lib), bound_ms=b_ms, bound_by=b_by,
+        bytes=n_bytes, ops=4 * d * pairs,
+        device_ms=profile_ms(kern, steps=10)["device_ms"],
+        library_device_ms=profile_ms(lib, steps=10)["device_ms"])
+
+
+def lm_path(dev, card, built) -> tuple:
+    """qwen2-0.5b: phases 3-6 → (kernel rows, launches per kernel)."""
+    import torch
+    from repro_torch.configs import get_config
     from repro_torch.models import model_zoo as Z
 
     errs = lm_kernel_checks(dev)
+    flash_build = flash_build_report(built)
 
     # ---- 4. serve at full width ------------------------------------------
     cfg = get_config("qwen2-0.5b")
@@ -892,6 +952,10 @@ def lm_path(dev, card) -> tuple:
     serve, eng_k, last = serve_check(
         "4", cfg, model, dev, card,
         {"flash_attention": cfg.n_layers, "rmsnorm": 2 * cfg.n_layers + 1})
+    n_flash = serve["launches"]["flash_attention"]
+    if serve["flash_routes"] != {"fma": n_flash, "mma": 0}:
+        fail(f"the serve run's {n_flash} flash calls took the routes "
+             f"{serve['flash_routes']}, not all the CUDA-core route")
     step_ms, prof_decode = decode_times("6", cfg, model, eng_k, last, card,
                                         param_bytes)
     serve["decode_step_ms"] = step_ms
@@ -905,33 +969,31 @@ def lm_path(dev, card) -> tuple:
                          device=dev)
     fwd, prof_fwd = forward_check(
         "5", cfg, model, dev, card, batch,
-        {"flash_attention": cfg.n_layers, "rmsnorm": 2 * cfg.n_layers + 1})
+        {"flash_attention": cfg.n_layers, "rmsnorm": 2 * cfg.n_layers + 1},
+        match=("flash",))
+    if fwd["flash_routes"] != {"fma": 0, "mma": cfg.n_layers}:
+        fail(f"the forward's flash calls took the routes "
+             f"{fwd['flash_routes']}, not all the tensor-core route")
+    flash_dev = prof_fwd["matched_ms"]["flash"]
+    fwd["flash_device_ms"] = flash_dev
+    log(f"[6] flash attention takes {flash_dev:.3f} ms of the traced "
+        f"{cfg.name} forward's {prof_fwd['device_ms']:.3f} ms of device time "
+        f"({100 * flash_dev / prof_fwd['device_ms']:.1f}%), "
+        f"{prof_fwd['matched_per_launch_ms']['flash']:.4f} ms a launch "
+        f"({card})")
     log_profiles("6", cfg.name, {"decode": prof_decode, "forward": prof_fwd},
                  card)
 
     # ---- 6. kernel times ----------------------------------------------------
-    bf16 = torch.bfloat16
-    g = torch.Generator(device=dev).manual_seed(3)
     h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    times = {}
-    for label, case in (
-            ("decode", (SLOTS, 1, length, h, kvh, d, False)),
-            ("prefill", (PREFILL_B, PREFILL_T, PREFILL_T, h, kvh, d, True))):
-        b, t, s, _, _, _, causal = case
-        q, k, v = _flash_operands(case, bf16, g, dev)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        lib = lambda: F.scaled_dot_product_attention(           # noqa: E731
-            qt, kt, vt, is_causal=causal, enable_gqa=True)
-        pairs = b * h * (t * (t + 1) // 2 if causal else t * s)
-        n_bytes = 2 * (2 * b * t * h * d + 2 * b * s * kvh * d)
-        b_ms, b_by = bound(n_bytes, 4 * d * pairs, BF16_FLOPS)
-        times[f"flash_attention {label}"] = dict(
-            shape=[b, t, s, h, kvh, d], causal=causal,
-            ms=cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal)),
-            plain_ms=cuda_ms(lambda: fa_ref.attention_ref(q, k, v,
-                                                          causal=causal)),
-            library_ms=cuda_ms(lib), bound_ms=b_ms, bound_by=b_by,
-            bytes=n_bytes, ops=4 * d * pairs)
+    times = {
+        "flash_attention decode": flash_times(
+            (SLOTS, 1, length, h, kvh, d, False), dev),
+        "flash_attention prefill": flash_times(
+            (PREFILL_B, PREFILL_T, PREFILL_T, h, kvh, d, True), dev),
+        # D 128 at the same length (16 query heads over 2 kv heads)
+        "flash_attention prefill D=128": flash_times(
+            (PREFILL_B, PREFILL_T, PREFILL_T, 16, 2, 128, True), dev)}
     times["rmsnorm decode"] = rmsnorm_times(SLOTS, cfg.d_model, dev)
     times["rmsnorm prefill"] = rmsnorm_times(PREFILL_B * PREFILL_T,
                                              cfg.d_model, dev)
@@ -941,7 +1003,7 @@ def lm_path(dev, card) -> tuple:
         "card": card, "model": cfg.name, "params": n_params,
         "param_bytes": param_bytes, "serve": serve, "forward": fwd,
         "profile": {"decode": prof_decode, "forward": prof_fwd},
-        "kernels": times, "max_abs_err": errs}))
+        "kernels": times, "max_abs_err": errs, "flash_build": flash_build}))
 
     rows = []
     for name in ("flash_attention", "rmsnorm"):
@@ -953,6 +1015,13 @@ def lm_path(dev, card) -> tuple:
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
             shape=f"qwen2-0.5b serve decode {r['shape']} bf16"))
+    # the flash row's prefill times (the tensor-core route) beside decode's
+    for label, key in (("prefill", "flash_attention prefill"),
+                       ("prefill_d128", "flash_attention prefill D=128")):
+        r = times[key]
+        rows[0][label] = {k: r[k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "device_ms", "library_device_ms")}
     launches = {k: serve["launches"][k] + fwd["launches"][k]
                 for k in serve["launches"]}
     return rows, launches
@@ -1110,24 +1179,14 @@ def _cuobjdump():
     return next((str(c) for c in cands if c.is_file()), None)
 
 
-def ssd_build_report(built) -> dict:
-    """Registers and spills of each SSD pass (``-Xptxas=-v`` in the build
-    log), its block's dynamic shared memory, the blocks an SM holds, and
-    its tensor-core instructions (HMMA in ``cuobjdump -sass``, where found)
-    → {"pass dtype": {...}}."""
+def kernel_build_report(built, source, key) -> dict:
+    """Registers and spills of each kernel instance of ``source``
+    (``-Xptxas=-v`` in the build log) and its tensor-core instructions
+    (HMMA in ``cuobjdump -sass``, where found) → {key(symbol): {...}} over
+    the mangled symbols that ``key`` names (None skips one)."""
     import re
-    import torch
-    from repro_torch.kernels.ssd import ops as ssd
 
-    lib, build_log = built["ssd.cu"]
-    kernels = {f"ssd_{name}_kernel": name for name in ssd.PASSES}
-
-    def key(symbol):
-        for kern, name in kernels.items():
-            if kern in symbol:
-                return f"{name} {'bf16' if 'bfloat16' in symbol else 'f32'}"
-        return None
-
+    lib, build_log = built[source]
     report, cur = {}, None
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -1147,28 +1206,49 @@ def ssd_build_report(built) -> dict:
         if m:
             report[cur]["registers"] = int(m.group(1))
     if not report:
-        log("[7] ssd build log empty (library built earlier): registers and "
-            "spills not read")
+        log(f"    {source} build log empty (library built earlier): "
+            f"registers and spills not read")
+    tool = _cuobjdump()
+    if tool is None:
+        log(f"    cuobjdump not found: HMMA instructions of {source} not "
+            f"counted")
+        return report
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120).stdout
+    cur = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = key(m.group(1))
+            if cur:
+                report.setdefault(cur, {})["hmma"] = 0
+        elif cur and "HMMA" in line:
+            report[cur]["hmma"] += 1
+    return report
+
+
+def ssd_build_report(built) -> dict:
+    """Registers and spills of each SSD pass, its block's dynamic shared
+    memory, the blocks an SM holds, and its tensor-core instructions →
+    {"pass dtype": {...}}."""
+    import torch
+    from repro_torch.kernels.ssd import ops as ssd
+
+    kernels = {f"ssd_{name}_kernel": name for name in ssd.PASSES}
+
+    def key(symbol):
+        for kern, name in kernels.items():
+            if kern in symbol:
+                return f"{name} {'bf16' if 'bfloat16' in symbol else 'f32'}"
+        return None
+
+    report = kernel_build_report(built, "ssd.cu", key)
     for name in ssd.PASSES:
         for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             r = report.setdefault(f"{name} {tag}", {})
             r["smem_bytes"], r["blocks_per_sm"] = ssd.pass_resources(name,
                                                                      dtype)
-    tool = _cuobjdump()
-    if tool is None:
-        log("[7] cuobjdump not found: HMMA instructions not counted")
-    else:
-        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                              text=True, timeout=120).stdout
-        cur = None
-        for line in sass.splitlines():
-            m = re.search(r"Function : (\S+)", line)
-            if m:
-                cur = key(m.group(1))
-                if cur:
-                    report.setdefault(cur, {})["hmma"] = 0
-            elif cur and "HMMA" in line:
-                report[cur]["hmma"] += 1
+    if _cuobjdump() is not None:
         no_tc = [k for k in ("chunk_state bf16", "cb bf16", "chunk_scan bf16")
                  if not report.get(k, {}).get("hmma")]
         if no_tc:
@@ -1179,6 +1259,45 @@ def ssd_build_report(built) -> dict:
             f"{r.get('spill_loads', '?')} bytes, {r['smem_bytes']} bytes of "
             f"dynamic shared memory a block, {r['blocks_per_sm']} blocks an "
             f"SM, HMMA instructions {r.get('hmma', 'not counted')}")
+    return report
+
+
+def flash_build_report(built) -> dict:
+    """Registers and spills of each flash-attention kernel instance, the
+    mma route's shared memory and blocks an SM, and HMMA instructions:
+    the tensor-core instances must have them, the CUDA-core ones (f32
+    among them) none → {"route D dtype": {...}}."""
+    import re
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    def key(symbol):
+        m = re.search(r"flash_mma_kernelILi(\d+)E", symbol)
+        if m:
+            return f"mma D{m.group(1)} bf16"
+        m = re.search(r"flash_kernelI(f|13__nv_bfloat16)Li(\d+)E", symbol)
+        if m:
+            dtype = "f32" if m.group(1) == "f" else "bf16"
+            return f"fma D{m.group(2)} {dtype}"
+        return None
+
+    report = kernel_build_report(built, "flash_attention.cu", key)
+    for d in fa.HEAD_DIMS:
+        r = report.setdefault(f"mma D{d} bf16", {})
+        r["smem_bytes"], r["blocks_per_sm"] = fa.mma_resources(d)
+    if _cuobjdump() is not None:
+        wrong = [k for k, r in report.items()
+                 if bool(r.get("hmma")) != k.startswith("mma")]
+        if wrong:
+            fail(f"flash instances with HMMA on the CUDA-core route or none "
+                 f"on the tensor-core route: {wrong}")
+    for k, r in sorted(report.items()):
+        smem = (f", {r['smem_bytes']} bytes of dynamic shared memory a "
+                f"block, {r['blocks_per_sm']} blocks an SM"
+                if "smem_bytes" in r else "")
+        log(f"[3] flash_attention {k}: {r.get('registers', '?')} registers, "
+            f"spill stores/loads {r.get('spill_stores', '?')}/"
+            f"{r.get('spill_loads', '?')} bytes{smem}, HMMA instructions "
+            f"{r.get('hmma', 'not counted')}")
     return report
 
 
@@ -1370,7 +1489,7 @@ def main() -> None:
     t0 = time.perf_counter()
     built = build_all()
     rows = dse_path(dev, card)
-    lm_rows, lm_launches = lm_path(dev, card)
+    lm_rows, lm_launches = lm_path(dev, card, built)
     rms_row = lm_rows[1]
     ssm_rows, ssm_launches, rms_row["max_abs_err"] = ssm_path(
         dev, card, rms_row["max_abs_err"], built)

@@ -150,6 +150,24 @@ def test_flash_wrapper_rejects_bad_operands():
         ops.flash_attention(cpu, meta, meta)
 
 
+def test_route_is_a_function_of_dtype_rows_and_head_dim():
+    """bf16 from ``MMA_MIN_ROWS`` query rows up takes the tensor-core
+    kernel; float32 at any length and bf16 decode (one row) take the
+    CUDA-core kernel.  On CPU tensors neither kernel runs."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    for d in ops.HEAD_DIMS:
+        for t in (ops.MMA_MIN_ROWS, 64, 2048):
+            assert ops._route(bf16, t, d) == "mma"
+        for t in (1, 16, 2048):
+            assert ops._route(f32, t, d) == "fma"
+        assert ops._route(bf16, 1, d) == "fma"
+        assert ops._route(bf16, ops.MMA_MIN_ROWS - 1, d) == "fma"
+    ops.reset_route_counts()
+    q = torch.zeros(1, 32, 2, 64, dtype=bf16)
+    ops.flash_attention(q, q, q)
+    assert ops.route_counts() == {"fma": 0, "mma": 0}
+
+
 CARD_CASES = [
     # (b, t, s, h, kv, d, causal, window, q_offset, cache_len)
     (4, 1, 1, 14, 2, 64, False, 0, 0, 0),           # decode prefixes
@@ -159,6 +177,10 @@ CARD_CASES = [
     (2, 512, 512, 14, 2, 64, True, 0, 0, 0),        # prefill
     (1, 512, 512, 14, 2, 64, True, 96, 0, 0),       # window
     (2, 200, 200, 8, 2, 128, True, 0, 0, 0),        # D 128 GQA, ragged
+    (2, 2048, 2048, 14, 2, 64, True, 0, 0, 0),      # qwen2-0.5b's forward
+    (2, 1000, 1000, 14, 2, 64, True, 0, 0, 0),      # ragged rows and keys
+    (2, 64, 1024, 14, 2, 64, True, 0, 960, 2048),   # rows at an offset, view
+    (2, 512, 512, 16, 2, 128, True, 0, 0, 0),       # D 128
 ]
 
 
@@ -168,17 +190,24 @@ CARD_CASES = [
 def test_flash_kernel_matches_plain_on_card(case, name, cuda_device):
     """With ``cache_len`` > 0, k and v are the prefix views
     ``cache[:, :s]`` of [b, cache_len, kv, d] buffers, the layout the
-    decode step hands the kernel."""
+    decode step hands the kernel.  bf16 with more than one query row
+    takes the tensor-core route, everything else the CUDA-core route; a
+    second call gives the same bits."""
     b, t, s, h, kv, d, causal, window, q_offset, cache_len = case
     _, ts = _qkv(b, t, cache_len or s, h, kv, d, name)
     q, k, v = (x.to(cuda_device) for x in ts)
     k, v = k[:, :s], v[:, :s]
     before = ops.launch_counts()["flash_attention"]
+    ops.reset_route_counts()
     out = ops.flash_attention(q, k, v, causal=causal, window=window,
                               q_offset=q_offset)
     torch.cuda.synchronize()
     assert ops.launch_counts()["flash_attention"] == before + 1
+    route = "mma" if name == "bf16" and t > 1 else "fma"
+    assert ops.route_counts() == {"fma": 0, "mma": 0, route: 1}
     want = ref.attention_ref(q, k, v, causal=causal, window=window,
                              q_offset=q_offset)
     np.testing.assert_allclose(out.float().cpu().numpy(),
                                want.float().cpu().numpy(), **_tol(name))
+    assert torch.equal(out, ops.flash_attention(
+        q, k, v, causal=causal, window=window, q_offset=q_offset))
