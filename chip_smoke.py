@@ -15,22 +15,24 @@ Phases, each fatal on any error:
    against the plain path on the card and against a CPU run;
 3. LM kernels: hold flash attention and RMSNorm against their plain
    versions on the card (f32 2e-5, bf16 2e-2) at the serve paths' decode
-   shapes and the prefill shapes, with the route each flash case took
-   and the same bits on a second call; the flash kernels' registers,
-   spills, shared memory and tensor-core (HMMA) instructions;
+   shapes and at D 128 (split edges, a window, causal rows at an offset)
+   and the prefill shapes, with the route each flash case took and the same bits
+   on a second call; the flash kernels' registers, spills, shared memory
+   and tensor-core (HMMA) instructions;
 4. serve qwen2-0.5b at full width through ``ServeEngine`` (8 requests,
    4 slots, random bf16 weights from a seed) on the kernels, with the
    counts set to 0 just before and read just after (every flash call on
-   the CUDA-core route), then on the plain versions; replay the kernel
+   the split route), then on the plain versions; replay the kernel
    run's inputs through the plain decode step and hold every step's
    logits to bf16 tolerance;
 5. the prefill forward at full width (B 2, T 2048) on both backends,
    every flash call on the tensor-core route;
 6. time each kernel, its plain version and its library call (flash
-   prefill at D 64 and D 128), the serve runs and the forward with CUDA
-   events; trace a decode step and the forward with torch.profiler
-   (device busy share, kernel launches, the largest kernels and host
-   ops, flash attention's share of the forward);
+   decode at S 405 and 1,024, with the host time of a call; prefill at
+   D 64 and D 128), the serve runs and the forward with CUDA events;
+   trace a decode step and the forward with torch.profiler (device busy
+   share, kernel launches, the largest kernels and host ops, flash
+   attention's share of the forward);
 7. mamba2-2.7b at full width: hold the SSD scan, and each of its four
    passes, against its plain version on the card (f32 2e-4, bf16 6e-2)
    at the forward's shape, a ragged T and two groups; serve the same
@@ -123,6 +125,22 @@ def cuda_ms(fn, reps: int = REPS, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def host_us(fn, calls: int = 1000) -> tuple:
+    """(µs a call to enqueue, µs a call to the end of the device's work):
+    ``calls`` calls of fn on the host clock with no synchronisation among
+    them, read before and after one synchronisation at the end."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return (t1 - t0) * 1e6 / calls, (t2 - t0) * 1e6 / calls
+
+
 def wall_ms(fn, reps: int = REPS) -> float:
     """Median host wall time of fn, which ends on the host."""
     fn()
@@ -179,6 +197,8 @@ def profile_ms(fn, steps: int, match: tuple = ()) -> dict:
     hits = {m: [e for e in kernels if m in e.key] for m in match}
     return dict(
         wall_ms=wall, device_ms=busy, busy_share=busy / wall,
+        host_self_ms=sum(e.self_cpu_time_total for e in host
+                         if "Synchronize" not in e.key) / 1e3 / steps,
         matched_ms={m: sum(dev_us(e) for e in es) / 1e3 / steps
                     for m, es in hits.items()},
         matched_per_launch_ms={
@@ -469,6 +489,7 @@ def lm_kernel_checks(dev) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(1)
     errs = {"flash_attention": 0.0, "rmsnorm": 0.0}
+    kps = fa.KEYS_PER_SPLIT
     flash_cases = [
         # (b, t, s, h, kv, d, causal, window, q_offset, cache_len, label);
         # cache_len > 0: k, v are prefix views of a [b, cache_len, kv, d]
@@ -478,6 +499,17 @@ def lm_kernel_checks(dev) -> dict:
         (4, 1, 1024, 14, 2, 64, False, 0, 1023, 0, "decode S=1024"),
         (4, 1, 405, 14, 2, 64, False, 0, 404, MAX_SEQ,
          f"decode S=405 of a {MAX_SEQ}-row cache view"),
+        (4, 1, 1024, 14, 2, 64, False, 16, 1023, 0, "decode S=1024 w=16"),
+        (4, 1, kps + 1, 14, 2, 64, False, 0, kps, 0,
+         f"decode S={kps + 1} (a last split of one key)"),
+        (4, 8, 508, 14, 2, 64, True, 0, 500, MAX_SEQ,
+         f"T=8 causal at offset 500 of a {MAX_SEQ}-row cache view"),
+        (4, 1, 1024, 16, 2, 128, False, 0, 1023, 2 * MAX_SEQ,
+         f"D=128 decode S=1024 of a {2 * MAX_SEQ}-row cache view"),
+        (4, 8, 508, 16, 2, 128, True, 0, 500, MAX_SEQ,
+         f"D=128 T=8 causal at offset 500 of a {MAX_SEQ}-row cache view"),
+        (4, 1, kps + 1, 14, 2, 128, False, 16, kps, 0,
+         f"D=128 decode S={kps + 1} w=16 (a last split of one key)"),
         (2, 2048, 2048, 14, 2, 64, True, 0, 0, 0, "prefill T=2048 causal"),
         (2, 512, 512, 14, 2, 64, True, 96, 0, 0, "window T=512 w=96"),
         (2, 512, 512, 16, 2, 128, True, 0, 0, 0, "D=128 GQA T=512 causal"),
@@ -896,13 +928,25 @@ def log_times(tag, times, card) -> None:
             f"{r['plain_ms']:.4f} ms, library "
             f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
             f"{r['bound_ms']:.5f} ms ({r['bound_by']}){dev} ({card})")
+        if "host_us" in r:
+            log(f"      host µs a call (enqueue / to the device's end over "
+                f"1,000 calls; profiler CPU self): kernel {r['host_us']:.2f}"
+                f" / {r['host_end_us']:.2f}; {r['host_self_us']:.2f}, "
+                f"library {r['library_host_us']:.2f} / "
+                f"{r['library_host_end_us']:.2f}; "
+                f"{r['library_host_self_us']:.2f}; device launches a call: "
+                f"kernel {r['device_launches']:.0f}, library "
+                f"{r['library_device_launches']:.0f}")
 
 
 def flash_times(case, dev) -> dict:
     """Flash kernel, plain version and ``scaled_dot_product_attention``
     at (b, t, s, h, kv, d, causal) in bf16, with the bound: the larger of
     q, k, v and o over the HBM rate and 4·d operations per visible (row,
-    key) pair over the bf16 tensor-core peak."""
+    key) pair over the bf16 tensor-core peak.  Beside the CUDA-event
+    times: the traced device time and device launches of a call, the
+    host µs of a call (:func:`host_us`) and the profiler's CPU self time
+    of a call, for the kernel and for SDPA."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa, ref as fa_ref
@@ -919,6 +963,8 @@ def flash_times(case, dev) -> dict:
     b_ms, b_by = bound(n_bytes, 4 * d * pairs, BF16_FLOPS)
     # cuda_ms holds the host's launch work wherever the card waits on it;
     # the traced device time of a call does not
+    prof_k, prof_l = profile_ms(kern, steps=10), profile_ms(lib, steps=10)
+    (enq_k, end_k), (enq_l, end_l) = host_us(kern), host_us(lib)
     return dict(
         shape=[b, t, s, h, kvh, d], causal=causal,
         route=fa._route(torch.bfloat16, t, d),
@@ -927,8 +973,14 @@ def flash_times(case, dev) -> dict:
                                                       causal=causal)),
         library_ms=cuda_ms(lib), bound_ms=b_ms, bound_by=b_by,
         bytes=n_bytes, ops=4 * d * pairs,
-        device_ms=profile_ms(kern, steps=10)["device_ms"],
-        library_device_ms=profile_ms(lib, steps=10)["device_ms"])
+        device_ms=prof_k["device_ms"],
+        library_device_ms=prof_l["device_ms"],
+        device_launches=prof_k["kernel_launches"],
+        library_device_launches=prof_l["kernel_launches"],
+        host_us=enq_k, host_end_us=end_k, library_host_us=enq_l,
+        library_host_end_us=end_l,
+        host_self_us=prof_k["host_self_ms"] * 1e3,
+        library_host_self_us=prof_l["host_self_ms"] * 1e3)
 
 
 def lm_path(dev, card, built) -> tuple:
@@ -953,9 +1005,9 @@ def lm_path(dev, card, built) -> tuple:
         "4", cfg, model, dev, card,
         {"flash_attention": cfg.n_layers, "rmsnorm": 2 * cfg.n_layers + 1})
     n_flash = serve["launches"]["flash_attention"]
-    if serve["flash_routes"] != {"fma": n_flash, "mma": 0}:
+    if serve["flash_routes"] != {"fma": 0, "mma": 0, "split": n_flash}:
         fail(f"the serve run's {n_flash} flash calls took the routes "
-             f"{serve['flash_routes']}, not all the CUDA-core route")
+             f"{serve['flash_routes']}, not all the split route")
     step_ms, prof_decode = decode_times("6", cfg, model, eng_k, last, card,
                                         param_bytes)
     serve["decode_step_ms"] = step_ms
@@ -971,7 +1023,7 @@ def lm_path(dev, card, built) -> tuple:
         "5", cfg, model, dev, card, batch,
         {"flash_attention": cfg.n_layers, "rmsnorm": 2 * cfg.n_layers + 1},
         match=("flash",))
-    if fwd["flash_routes"] != {"fma": 0, "mma": cfg.n_layers}:
+    if fwd["flash_routes"] != {"fma": 0, "mma": cfg.n_layers, "split": 0}:
         fail(f"the forward's flash calls took the routes "
              f"{fwd['flash_routes']}, not all the tensor-core route")
     flash_dev = prof_fwd["matched_ms"]["flash"]
@@ -989,6 +1041,8 @@ def lm_path(dev, card, built) -> tuple:
     times = {
         "flash_attention decode": flash_times(
             (SLOTS, 1, length, h, kvh, d, False), dev),
+        "flash_attention decode S=1024": flash_times(
+            (SLOTS, 1, MAX_SEQ, h, kvh, d, False), dev),
         "flash_attention prefill": flash_times(
             (PREFILL_B, PREFILL_T, PREFILL_T, h, kvh, d, True), dev),
         # D 128 at the same length (16 query heads over 2 kv heads)
@@ -1015,13 +1069,22 @@ def lm_path(dev, card, built) -> tuple:
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
             shape=f"qwen2-0.5b serve decode {r['shape']} bf16"))
-    # the flash row's prefill times (the tensor-core route) beside decode's
-    for label, key in (("prefill", "flash_attention prefill"),
+    # the flash row's decode host times and device launches, and the times
+    # at S 1,024 and at prefill (the tensor-core route), beside decode's
+    host_keys = ("host_us", "library_host_us", "host_self_us",
+                 "library_host_self_us", "device_launches",
+                 "library_device_launches")
+    rows[0].update({k: times["flash_attention decode"][k]
+                    for k in host_keys + ("device_ms", "library_device_ms")})
+    for label, key in (("decode_s1024", "flash_attention decode S=1024"),
+                       ("prefill", "flash_attention prefill"),
                        ("prefill_d128", "flash_attention prefill D=128")):
         r = times[key]
         rows[0][label] = {k: r[k] for k in (
             "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms", "library_device_ms")}
+        if label == "decode_s1024":
+            rows[0][label].update({k: r[k] for k in host_keys})
     launches = {k: serve["launches"][k] + fwd["launches"][k]
                 for k in serve["launches"]}
     return rows, launches
@@ -1264,26 +1327,33 @@ def ssd_build_report(built) -> dict:
 
 def flash_build_report(built) -> dict:
     """Registers and spills of each flash-attention kernel instance, the
-    mma route's shared memory and blocks an SM, and HMMA instructions:
-    the tensor-core instances must have them, the CUDA-core ones (f32
-    among them) none → {"route D dtype": {...}}."""
+    mma and split routes' shared memory and blocks an SM, and HMMA
+    instructions: the tensor-core instances must have them, the CUDA-core
+    ones (fma and split, f32 among them) none → {"route D dtype": {...}}."""
     import re
+    import torch
     from repro_torch.kernels.flash_attention import ops as fa
 
     def key(symbol):
         m = re.search(r"flash_mma_kernelILi(\d+)E", symbol)
         if m:
             return f"mma D{m.group(1)} bf16"
-        m = re.search(r"flash_kernelI(f|13__nv_bfloat16)Li(\d+)E", symbol)
+        m = re.search(r"flash_(split_)?kernelI(f|13__nv_bfloat16)Li(\d+)E",
+                      symbol)
         if m:
-            dtype = "f32" if m.group(1) == "f" else "bf16"
-            return f"fma D{m.group(2)} {dtype}"
+            dtype = "f32" if m.group(2) == "f" else "bf16"
+            return f"{'split' if m.group(1) else 'fma'} D{m.group(3)} {dtype}"
         return None
 
     report = kernel_build_report(built, "flash_attention.cu", key)
     for d in fa.HEAD_DIMS:
         r = report.setdefault(f"mma D{d} bf16", {})
         r["smem_bytes"], r["blocks_per_sm"] = fa.mma_resources(d)
+        for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            r = report.setdefault(f"split D{d} {tag}", {})
+            r["static_smem_bytes"], regs, r["blocks_per_sm"] = \
+                fa.split_resources(dtype, d)
+            r.setdefault("registers", regs)   # where the build log is empty
     if _cuobjdump() is not None:
         wrong = [k for k, r in report.items()
                  if bool(r.get("hmma")) != k.startswith("mma")]
@@ -1293,7 +1363,10 @@ def flash_build_report(built) -> dict:
     for k, r in sorted(report.items()):
         smem = (f", {r['smem_bytes']} bytes of dynamic shared memory a "
                 f"block, {r['blocks_per_sm']} blocks an SM"
-                if "smem_bytes" in r else "")
+                if "smem_bytes" in r else
+                f", {r['static_smem_bytes']} bytes of static shared memory "
+                f"a block, {r['blocks_per_sm']} blocks an SM"
+                if "static_smem_bytes" in r else "")
         log(f"[3] flash_attention {k}: {r.get('registers', '?')} registers, "
             f"spill stores/loads {r.get('spill_stores', '?')}/"
             f"{r.get('spill_loads', '?')} bytes{smem}, HMMA instructions "

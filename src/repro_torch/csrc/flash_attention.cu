@@ -9,23 +9,82 @@
 // diagonal or outside the window are never loaded.  Output = acc / max(l,
 // 1e-30), cast to the input type; a row that sees no key gives 0.
 //
-// Two kernels, two routes, chosen by the wrapper from (dtype, T, D) alone
-// (kernels/flash_attention/ops.py, _route) and never as a reaction to a
-// failure:
+// Three kernels, three routes, chosen by the wrapper from (dtype, T, D)
+// alone (kernels/flash_attention/ops.py, _route) and never as a reaction
+// to a failure:
 //
-//   mma  bf16 q, k, v with T >= 16 query rows (prefill): flash_mma_kernel,
-//        both products on the tensor cores;
-//   fma  float32 at every shape, and bf16 below 16 rows (decode: one
-//        query token per slot over a cache prefix): flash_kernel, fp32
-//        FMAs on the CUDA cores.  float32 stays there because the f32
-//        tolerance of 2e-5 cannot be met with bf16 products.
+//   split  T < 16 query rows (decode: one query token per slot over a
+//          cache prefix, and short multi-token steps), float32 and bf16:
+//          flash_split_kernel, the keys split over many blocks, fp32 FMAs
+//          on the CUDA cores;
+//   mma    bf16 with T >= 16 rows (prefill): flash_mma_kernel, both
+//          products on the tensor cores;
+//   fma    float32 with T >= 16 rows: flash_kernel, fp32 FMAs on the CUDA
+//          cores.  float32 stays off the tensor cores because its
+//          tolerance of 2e-5 cannot be met with bf16 products.
 //
 // Bound on this card.  Prefill (T = S, causal) does 4 D operations per
 // visible (row, key) pair against B T (H + 2 KV) D elements: at qwen2-0.5b's
 // forward (B 2, T 2048, H 14, KV 2, D 64) that is 15.0 GFLOP, 0.0152 ms on
 // the bf16 tensor cores (989 TFLOP/s), against 0.0050 ms for its 16.8 MB,
 // so operations bound it.  Decode reads the visible K/V prefix once and does
-// 4 D operations per key: bytes bound it (3.35 TB/s).
+// 4 D operations per (row, key): bytes bound it.  At qwen2-0.5b's serve
+// shape (B 4, T 1, S 405, H 14, KV 2, D 64, bf16) that is 843,776 bytes,
+// 0.00025 ms at 3.35 TB/s.
+//
+// The split route.  The fma kernel below served decode until it was given
+// this route; it ran the serve shape at over 100x the bound (0.030-0.039
+// ms on the device, PERF.md) for causes each met here:
+//
+//   1. Eight blocks on 132 SMs: its grid was (row tiles, KV, B), one block
+//      walking all keys of a kv head, half its warps holding no row.  Here
+//      the keys are split: grid (splits, KV x row tiles, B), each block
+//      taking the T G rows (8 at most, a row tile) of one kv head over one
+//      split of keys.  The wrapper picks the split (ops._splits) from the
+//      shape alone: keys a split a multiple of 32 (16, 32 and 64 tied in
+//      probe runs on the card), at most 16 splits and about 512 blocks;
+//      13 splits of 32 keys x 8 = 104 blocks at S 405, 16 of 64 at S 1,024.
+//   2. K widened to fp32 and stored transposed in shared memory one scalar
+//      at a time, two __syncthreads a tile.  Here a lane reads 16 bytes of
+//      one key row straight from global memory (8 bf16 or 4 f32 values), so
+//      D / 8 or D / 4 lanes (a key group) cover a row and a warp step covers
+//      4, 2 or 1 keys; each K/V element is read once and serves every row
+//      of the block from registers; the key loop has no barrier.
+//   3. Nothing overlapped the next loads with the arithmetic.  Here a warp
+//      takes its steps in pairs under one softmax update, and the next
+//      pair's loads are issued before this pair's arithmetic (the first
+//      pair's before q's).
+//   4. One row's softmax ran in every lane.  Here a step's 8 partial
+//      scores are reduce-scattered over the group's lanes (7 shuffles), so
+//      lane l runs row l % 8's softmax alone, and p and the rescale factor
+//      reach the accumulating lanes by shuffles; the rescale runs only
+//      where some row's max rose.
+//   5. A heavy host path: the wrapper now passes one packed argument
+//      (struct Launch) instead of 26, reads the stream as a raw handle and
+//      switches device only when q's is not current.
+//
+// Scores and softmax are fp32: q is loaded once and scaled by
+// log2(e) / sqrt(D) in fp32, and p = 2^(s - m) stays fp32 (the TPU kernel
+// keeps p in f32).  Each warp runs its own online softmax over its keys
+// (m shared by the warp, l and the accumulators kept per key group); at
+// the end the warps' (m, l, acc) are merged through shared memory in warp
+// order, then key-group order.  With one split the block writes O itself.
+// Otherwise each split writes its (acc[D], m, l) per row in fp32 to a
+// workspace [B, KV x row tiles, splits, 8 rows, D + 2] (torch.empty by the
+// wrapper); after a barrier its thread 0 fences and takes a ticket from a
+// counter of its (row tile, kv head, batch), and the block that takes the
+// last ticket sets the counter back to 0, loads every split's (m, l,
+// acc) of its rows in one round from L2 and combines them in index order:
+// m = max m_i, l = sum l_i 2^(m_i - m), O = sum acc_i 2^(m_i - m) · (1 /
+// max(l, 1e-30)), written once in q's dtype.  So the split route is one device
+// launch a call, the only atomic is the ticket, every sum runs in a fixed
+// order whichever block ends last, and a second call gives the same bits.
+// Calls on one stream run in turn, so a counter (kept per device and
+// stream by the wrapper) is 0 when the next call starts.  A split whose
+// keys lie wholly past the diagonal or before the window loads nothing and
+// writes m = -inf, l = 0.  What still holds it above SDPA (PERF.md): a
+// floor of about 4 us for one split, and the three dependent round trips
+// to L2 of the combine (the partials and fence, the ticket, the loads).
 //
 // The mma route.  The CUDA-core kernel it took over from (the fma route
 // below) ran prefill at 70x its bound for three reasons, each met here:
@@ -68,7 +127,8 @@
 // runs in a fixed order (l across a row's 4 lanes by a fixed shuffle
 // tree), so every run gives the same bits.
 //
-// The fma route.  One thread block owns a tile of query rows and loops
+// The fma route (float32 with T >= 16 rows; until the split route it also
+// served decode).  One thread block owns a tile of query rows and loops
 // over kv tiles itself.  A block serves one (batch, kv head): its rows are
 // (t, g) pairs of the G = H / KV query heads that share that kv head,
 // t-major, so a K/V tile loaded into shared memory serves all G heads, and
@@ -85,6 +145,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -99,19 +160,25 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);
 }
 
-// 16 bytes of T as floats.
+// 16 bytes of T as floats (from memory, or from registers), and 4 floats
+// stored as T.
 template <typename T> struct Vec;
 template <> struct Vec<float> {
   static constexpr int N = 4;
+  __device__ __forceinline__ static void unpack(const uint4& v, float* out) {
+    out[0] = __uint_as_float(v.x); out[1] = __uint_as_float(v.y);
+    out[2] = __uint_as_float(v.z); out[3] = __uint_as_float(v.w);
+  }
   __device__ __forceinline__ static void load(const float* p, float* out) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+    unpack(*reinterpret_cast<const uint4*>(p), out);
+  }
+  __device__ __forceinline__ static void store4(float* p, float4 v) {
+    *reinterpret_cast<float4*>(p) = v;
   }
 };
 template <> struct Vec<__nv_bfloat16> {
   static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* out) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
+  __device__ __forceinline__ static void unpack(const uint4& v, float* out) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -119,6 +186,18 @@ template <> struct Vec<__nv_bfloat16> {
       out[2 * i] = f.x;
       out[2 * i + 1] = f.y;
     }
+  }
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* out) {
+    unpack(*reinterpret_cast<const uint4*>(p), out);
+  }
+  // 4 floats to 4 bf16 (8 bytes)
+  __device__ __forceinline__ static void store4(__nv_bfloat16* p, float4 v) {
+    __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+    __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+    uint2 u;
+    u.x = *reinterpret_cast<uint32_t*>(&lo);
+    u.y = *reinterpret_cast<uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(p) = u;
   }
 };
 
@@ -128,6 +207,11 @@ struct Args {
   int64_t qsb, qst, qsh, ksb, kss, ksh, vsb, vss, vsh;
   int causal, window, q_offset;
   float sm_scale;
+  // the split route only: keys a split, the partials' workspace and the
+  // ticket counters
+  int kps;
+  float* ws;
+  unsigned int* tickets;
 };
 
 template <int D, int BKV>
@@ -680,35 +764,414 @@ cudaError_t mma_resources(int* out) {
       &out[1], flash_mma_kernel<D>, kMmaWarps * 32, out[0]);
 }
 
+// ---- the split route: decode and short steps, the keys split over blocks -----
+
+constexpr int kSplitWarps = 4;     // warps a block
+constexpr int kSplitRows = 8;      // query rows a block (a row tile)
+constexpr int kMaxSplits = 16;     // splits of one (row tile, kv head, batch)
+
+// 16 bytes of global memory through the read-only path.
+__device__ __forceinline__ uint4 ldg16(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// Block (split, kv head x row tiles + row tile, batch): rows row0 ..
+// row0 + 7 of the T G (t, g) rows of kv head kvh (t-major), keys [k_lo,
+// k_hi) of its split.  A warp step takes KPW keys, one a key group of LPK
+// lanes; lane l loads columns c .. c + VN - 1 of its group's key and
+// keeps the accumulators of those columns for all 8 rows.  Warp w takes
+// steps w, w + 4, ..., two at a time.  The scores of a step are
+// reduce-scattered over the group's lanes, so lane l ends with the score
+// of row l % 8 and runs that row's softmax; the p and the rescale factor
+// of each row reach the accumulating lanes by shuffles.
+template <typename T, int D>
+__global__ void __launch_bounds__(kSplitWarps * 32)
+flash_split_kernel(const Args a) {
+  constexpr int VN = Vec<T>::N;              // values in 16 bytes
+  constexpr int LPK = D / VN;                // lanes a key row: 8, 16 or 32
+  constexpr int KPW = 32 / LPK;              // keys a warp step
+  constexpr int KPB = KPW * kSplitWarps;     // keys a block step
+  constexpr int R = kSplitRows;
+  constexpr int C4 = D / 4;                  // float4 columns a row
+  constexpr int kThreads = kSplitWarps * 32;
+  constexpr int PART = R * (D + 2);          // floats of one split's partial
+  constexpr unsigned kAll = 0xffffffffu;
+  constexpr float kLog2e = 1.4426950408889634f;
+  static_assert(R == 8 && LPK >= 8, "the score scatter maps 8 rows on 8 lanes");
+  // each warp's and key group's partial (acc, l) per row, and its m; a
+  // key group's [R][D] block is padded by 4 floats, so that a warp's float4
+  // stores (lanes 32 floats apart collide) take 4 bank wavefronts, not 8
+  constexpr int GS = R * D + 4;
+  __shared__ __align__(16) float acc_s[kSplitWarps][KPW][GS];
+  __shared__ float l_s[kSplitWarps][KPW][R];
+  __shared__ float m_s[kSplitWarps][R];
+  __shared__ int last_s;
+
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  T* o = static_cast<T*>(a.o);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int kg = lane / LPK;                 // this lane's key in a step
+  const int c = (lane % LPK) * VN;           // its first column
+  const int grp = kg * LPK;                  // the first lane of its group
+  const int row_tiles = gridDim.y / a.kv;
+  const int kvh = blockIdx.y / row_tiles;
+  const int row0 = (blockIdx.y % row_tiles) * R;
+  const int64_t b = blockIdx.z;
+  const int n_rows = a.t * a.g;
+  const int split = blockIdx.x, n_split = gridDim.x;
+
+  // the keys of this split that any row of the block sees
+  const int pos_lo = a.q_offset + row0 / a.g;
+  const int pos_hi = a.q_offset + (min(row0 + R, n_rows) - 1) / a.g;
+  int k_lo = split * a.kps, k_hi = min(a.s, k_lo + a.kps);
+  if (a.causal) k_hi = min(k_hi, pos_hi + 1);
+  if (a.window) k_lo = max(k_lo, pos_lo - a.window + 1);
+
+  // row lane % 8's softmax state over this key group's keys (m is the
+  // same in every group of the warp)
+  const int my_row = row0 + (lane & 7);
+  const bool my_ok = my_row < n_rows;
+  const int my_pos = a.q_offset + (my_ok ? my_row / a.g : 0);
+  float m = -INFINITY, l = 0.f;
+  float acc[R][VN];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int j = 0; j < VN; ++j) acc[r][j] = 0.f;
+
+  if (k_lo < k_hi) {   // block-uniform: an empty split loads nothing
+    const T* kb = k + b * a.ksb + kvh * a.ksh + c;
+    const T* vb = v + b * a.vsb + kvh * a.vsh + c;
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    // Steps go in pairs (A, B = A + KPB keys) under one softmax update, and
+    // the next pair is loaded while this one is computed.  The first pair's
+    // loads are issued before q's, so both are in flight at once.
+    const int key0 = k_lo + warp * KPW + kg;
+    uint4 ka = zero, va = zero, kb2 = zero, vb2 = zero;
+    if (key0 < k_hi) {
+      ka = ldg16(kb + key0 * a.kss);
+      va = ldg16(vb + key0 * a.vss);
+    }
+    if (key0 + KPB < k_hi) {
+      kb2 = ldg16(kb + (key0 + KPB) * a.kss);
+      vb2 = ldg16(vb + (key0 + KPB) * a.vss);
+    }
+    // this lane's columns of the block's rows, scaled; rows past T G are 0.
+    // Row row0 + r is (t, g): one division for the first, then steps.
+    float qf[R][VN];
+    int t = row0 / a.g, g = row0 - t * a.g;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (row0 + r < n_rows) {
+        Vec<T>::load(q + b * a.qsb + t * a.qst + (kvh * a.g + g) * a.qsh + c,
+                     qf[r]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < VN; ++j) qf[r][j] = 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < VN; ++j) qf[r][j] *= a.sm_scale * kLog2e;
+      if (++g == a.g) {
+        g = 0;
+        ++t;
+      }
+    }
+
+    // row lane % 8's score at this group's key of one step, -inf if masked
+    auto score = [&](const float (&kf)[VN], int key) {
+      float sc[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        sc[r] = 0.f;
+#pragma unroll
+        for (int j = 0; j < VN; ++j) sc[r] = fmaf(qf[r][j], kf[j], sc[r]);
+      }
+      // reduce-scatter over lane bits 2, 1, 0: each level keeps half the
+      // rows and adds the partner's; then the rest of the group
+      float s4[4], s2[2];
+      const bool h2 = lane & 4, h1 = lane & 2, h0 = lane & 1;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        s4[i] = (h2 ? sc[i + 4] : sc[i]) +
+                __shfl_xor_sync(kAll, h2 ? sc[i] : sc[i + 4], 4);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        s2[i] = (h1 ? s4[i + 2] : s4[i]) +
+                __shfl_xor_sync(kAll, h1 ? s4[i] : s4[i + 2], 2);
+      float x = (h0 ? s2[1] : s2[0]) +
+                __shfl_xor_sync(kAll, h0 ? s2[0] : s2[1], 1);
+#pragma unroll
+      for (int off = 8; off < LPK; off <<= 1) x += __shfl_xor_sync(kAll, x, off);
+      const bool ok = key < k_hi && my_ok && (!a.causal || key <= my_pos) &&
+                      (!a.window || key > my_pos - a.window);
+      return ok ? x : -INFINITY;
+    };
+    // warp-uniform: every lane runs every pair, so the shuffles see all 32
+    for (int k0 = k_lo + warp * KPW; k0 < k_hi; k0 += 2 * KPB) {
+      const int key_a = k0 + kg, key_b = key_a + KPB;
+      uint4 na = zero, nva = zero, nb = zero, nvb = zero;
+      if (key_a + 2 * KPB < k_hi) {
+        na = ldg16(kb + (key_a + 2 * KPB) * a.kss);
+        nva = ldg16(vb + (key_a + 2 * KPB) * a.vss);
+      }
+      if (key_b + 2 * KPB < k_hi) {
+        nb = ldg16(kb + (key_b + 2 * KPB) * a.kss);
+        nvb = ldg16(vb + (key_b + 2 * KPB) * a.vss);
+      }
+      float kfa[VN], vfa[VN], kfb[VN], vfb[VN];
+      Vec<T>::unpack(ka, kfa);
+      Vec<T>::unpack(va, vfa);
+      Vec<T>::unpack(kb2, kfb);
+      Vec<T>::unpack(vb2, vfb);
+      const float sa = score(kfa, key_a), sb = score(kfb, key_b);
+
+      // the softmax of row lane % 8 over the pair's keys of the warp
+      float mx = fmaxf(sa, sb);
+#pragma unroll
+      for (int off = LPK; off < 32; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(kAll, mx, off));
+      // a row that has seen no key yet keeps m = -inf, and its exponents
+      // run against 0 (2^-inf = 0: a masked key gives p = 0)
+      const float m_new = fmaxf(m, mx);
+      const float base = m_new == -INFINITY ? 0.f : m_new;
+      const float corr = ex2(m - base);
+      const float pa = ex2(sa - base), pb = ex2(sb - base);
+      l = fmaf(l, corr, pa) + pb;
+      m = m_new;
+
+      // every row's accumulators: rescaled only where some row's max rose
+      if (__any_sync(kAll, corr != 1.f)) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float cr = __shfl_sync(kAll, corr, grp + r);
+#pragma unroll
+          for (int j = 0; j < VN; ++j) acc[r][j] *= cr;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float par = __shfl_sync(kAll, pa, grp + r);
+        const float pbr = __shfl_sync(kAll, pb, grp + r);
+#pragma unroll
+        for (int j = 0; j < VN; ++j)
+          acc[r][j] = fmaf(pbr, vfb[j], fmaf(par, vfa[j], acc[r][j]));
+      }
+      ka = na;
+      va = nva;
+      kb2 = nb;
+      vb2 = nvb;
+    }
+  }
+
+  // each key group's partials to shared memory (l from the group's first
+  // 8 lanes, m, the same in every group, from the warp's first 8)
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int j = 0; j < VN; j += 4)
+      *reinterpret_cast<float4*>(&acc_s[warp][kg][r * D + c + j]) =
+          make_float4(acc[r][j], acc[r][j + 1], acc[r][j + 2], acc[r][j + 3]);
+  if (lane - grp < 8) l_s[warp][kg][lane & 7] = l;
+  if (lane < 8) m_s[warp][lane] = m;
+  __syncthreads();
+
+  // merge the warps in warp order, key groups in group order: this block's
+  // (acc, m, l) per row; four columns a thread
+  float* part = n_split == 1 ? nullptr
+                : a.ws + (b * gridDim.y + blockIdx.y) * n_split * PART;
+  for (int e = tid; e < R * C4; e += kThreads) {
+    const int r = e / C4, d = (e % C4) * 4;
+    float mm = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kSplitWarps; ++w) mm = fmaxf(mm, m_s[w][r]);
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    float ll = 0.f;
+#pragma unroll
+    for (int w = 0; w < kSplitWarps; ++w) {
+      const float ww = m_s[w][r] == -INFINITY ? 0.f : ex2(m_s[w][r] - mm);
+#pragma unroll
+      for (int g = 0; g < KPW; ++g) {
+        const float4 x = *reinterpret_cast<const float4*>(&acc_s[w][g][r * D + d]);
+        sum.x += x.x * ww; sum.y += x.y * ww;
+        sum.z += x.z * ww; sum.w += x.w * ww;
+        ll += l_s[w][g][r] * ww;
+      }
+    }
+    const int gr = row0 + r;
+    if (n_split == 1) {   // the only split: O here
+      if (gr < n_rows) {
+        const float inv = 1.f / fmaxf(ll, 1e-30f);
+        const int t = gr / a.g, h = kvh * a.g + gr % a.g;
+        // o is contiguous [B, T, H, D]
+        Vec<T>::store4(o + ((b * a.t + t) * a.h + h) * D + d,
+                       make_float4(sum.x * inv, sum.y * inv, sum.z * inv,
+                                   sum.w * inv));
+      }
+    } else {
+      float* mine = part + split * PART;
+      *reinterpret_cast<float4*>(mine + r * D + d) = sum;
+      if (d == 0) {
+        mine[R * D + r] = mm;
+        mine[R * D + R + r] = ll;
+      }
+    }
+  }
+  if (n_split == 1) return;
+
+  // the last block of the (row tile, kv head, batch) to finish combines:
+  // the barrier orders the block's writes before thread 0's fence and
+  // ticket, and the last ticket's fence and barrier order its reads after
+  // every split's writes
+  __syncthreads();
+  if (tid == 0) {
+    unsigned int* ticket = a.tickets + b * gridDim.y + blockIdx.y;
+    __threadfence();
+    last_s = atomicAdd(ticket, 1u) == static_cast<unsigned int>(n_split - 1);
+    if (last_s) {
+      *ticket = 0u;   // every split has taken its ticket
+      __threadfence();
+    }
+  }
+  __syncthreads();
+  if (!last_s) return;
+
+  // every split's (m, l, acc) of this thread's row and columns in one round
+  // of loads from L2, then the splits in index order
+  for (int e = tid; e < R * C4; e += kThreads) {
+    const int r = e / C4, d = (e % C4) * 4, gr = row0 + r;
+    if (gr >= n_rows) continue;
+    float mi[kMaxSplits], li[kMaxSplits];
+    float4 xi[kMaxSplits];
+#pragma unroll
+    for (int i = 0; i < kMaxSplits; ++i) {
+      if (i < n_split) {
+        mi[i] = __ldcg(part + i * PART + R * D + r);
+        li[i] = __ldcg(part + i * PART + R * D + R + r);
+        xi[i] = __ldcg(reinterpret_cast<const float4*>(part + i * PART + r * D + d));
+      }
+    }
+    float mm = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < kMaxSplits; ++i)
+      if (i < n_split) mm = fmaxf(mm, mi[i]);
+    float ll = 0.f;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int i = 0; i < kMaxSplits; ++i) {
+      if (i < n_split) {
+        const float w = mi[i] == -INFINITY ? 0.f : ex2(mi[i] - mm);
+        ll += li[i] * w;
+        sum.x += xi[i].x * w; sum.y += xi[i].y * w;
+        sum.z += xi[i].z * w; sum.w += xi[i].w * w;
+      }
+    }
+    const float inv = 1.f / fmaxf(ll, 1e-30f);
+    const int t = gr / a.g, h = kvh * a.g + gr % a.g;
+    Vec<T>::store4(o + ((b * a.t + t) * a.h + h) * D + d,
+                   make_float4(sum.x * inv, sum.y * inv, sum.z * inv,
+                               sum.w * inv));
+  }
+}
+
+// splits: blocks over the keys (1..kMaxSplits), a.kps keys each;
+// row_tiles: ceil(T G / kSplitRows).
+template <typename T, int D>
+cudaError_t launch_split(const Args& a, int b, int splits, int row_tiles,
+                         cudaStream_t stream) {
+  if (splits < 1 || splits > kMaxSplits || a.kps < 1 ||
+      static_cast<int64_t>(splits) * a.kps < a.s ||
+      static_cast<int64_t>(row_tiles) * kSplitRows < a.t * a.g ||
+      static_cast<int64_t>(a.kv) * row_tiles > 65535 ||
+      (splits > 1 && (a.ws == nullptr || a.tickets == nullptr)))
+    return cudaErrorInvalidValue;
+  flash_split_kernel<T, D><<<dim3(splits, a.kv * row_tiles, b),
+                             kSplitWarps * 32, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// out: {static shared memory of a block in bytes, registers a thread,
+// blocks one SM of the current device holds at once} of a split instance.
+template <typename T, int D>
+cudaError_t split_resources(int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, flash_split_kernel<T, D>);
+  if (err != cudaSuccess) return err;
+  out[0] = static_cast<int>(attr.sharedSizeBytes);
+  out[1] = attr.numRegs;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[2], flash_split_kernel<T, D>, kSplitWarps * 32, 0);
+}
+
+template <typename T>
+cudaError_t launch_split_typed(const Args& a, int b, int d, int splits,
+                               int row_tiles, cudaStream_t stream) {
+  if (d == 64) return launch_split<T, 64>(a, b, splits, row_tiles, stream);
+  if (d == 128) return launch_split<T, 128>(a, b, splits, row_tiles, stream);
+  return cudaErrorInvalidValue;
+}
+
+// The one argument of flash_attention_launch, packed by the wrapper
+// (ops._LAUNCH, struct format "<16q13if"): addresses, element strides of
+// q [B, T, H, D] and k, v [B, S, KV, D] (the last axis contiguous, rows
+// 16-byte aligned), then the sizes and flags.  o is contiguous [B, T, H, D].
+struct Launch {
+  int64_t q, k, v, o, ws, tickets, stream;
+  int64_t qsb, qst, qsh, ksb, kss, ksh, vsb, vss, vsh;
+  // route: 0 fma, 1 mma (bf16 only), 2 split; dtype: 0 float32, 1 bfloat16;
+  // splits and kps (keys a split) for the split route
+  int32_t route, dtype, b, t, s, h, kv, d, causal, window, q_offset, splits, kps;
+  float sm_scale;
+};
+static_assert(sizeof(Launch) == 184, "ops._LAUNCH packs 184 bytes");
+
 }  // namespace
 
-// route: 0 the CUDA-core kernel (fma), 1 the tensor-core kernel (mma, bf16
-// only).  dtype: 0 float32, 1 bfloat16.  q [B, T, H, D], k and v [B, S, KV,
-// D] with the given element strides (the last axis contiguous, rows
-// 16-byte aligned); o contiguous [B, T, H, D].  Returns cudaGetLastError()
+// Launch one route on a Launch packed at `packed` → cudaGetLastError()
 // after the launch.
-extern "C" int flash_attention_launch(
-    int route, int dtype, const void* q, const void* k, const void* v, void* o,
-    int b, int t, int s, int h, int kv, int d,
-    int64_t qsb, int64_t qst, int64_t qsh,
-    int64_t ksb, int64_t kss, int64_t ksh,
-    int64_t vsb, int64_t vss, int64_t vsh,
-    int causal, int window, int q_offset, float sm_scale, void* stream) {
-  if (b <= 0 || b > 65535 || t <= 0 || s <= 0 || kv <= 0 || h % kv != 0)
+extern "C" int flash_attention_launch(const void* packed) {
+  Launch p;
+  memcpy(&p, packed, sizeof(p));
+  if (p.b <= 0 || p.b > 65535 || p.t <= 0 || p.s <= 0 || p.kv <= 0 ||
+      p.h % p.kv != 0)
     return cudaErrorInvalidValue;
-  Args a{q, k, v, o, t, s, h, kv, h / kv, qsb, qst, qsh, ksb, kss, ksh,
-         vsb, vss, vsh, causal, window, q_offset, sm_scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (route == 1) {
-    if (dtype != 1) return cudaErrorInvalidValue;
-    if (d == 64) return launch_mma<64>(a, b, st);
-    if (d == 128) return launch_mma<128>(a, b, st);
+  Args a{reinterpret_cast<const void*>(p.q), reinterpret_cast<const void*>(p.k),
+         reinterpret_cast<const void*>(p.v), reinterpret_cast<void*>(p.o),
+         p.t, p.s, p.h, p.kv, p.h / p.kv, p.qsb, p.qst, p.qsh, p.ksb, p.kss,
+         p.ksh, p.vsb, p.vss, p.vsh, p.causal, p.window, p.q_offset,
+         p.sm_scale, p.kps, reinterpret_cast<float*>(p.ws),
+         reinterpret_cast<unsigned int*>(p.tickets)};
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(p.stream);
+  if (p.route == 2) {
+    const int row_tiles = (a.t * a.g + kSplitRows - 1) / kSplitRows;
+    if (p.dtype == 0)
+      return launch_split_typed<float>(a, p.b, p.d, p.splits, row_tiles, st);
+    if (p.dtype == 1)
+      return launch_split_typed<__nv_bfloat16>(a, p.b, p.d, p.splits,
+                                               row_tiles, st);
     return cudaErrorInvalidValue;
   }
-  if (route != 0) return cudaErrorInvalidValue;
-  if (dtype == 0) return launch_typed<float>(a, b, d, st);
-  if (dtype == 1) return launch_typed<__nv_bfloat16>(a, b, d, st);
+  if (p.route == 1) {
+    if (p.dtype != 1) return cudaErrorInvalidValue;
+    if (p.d == 64) return launch_mma<64>(a, p.b, st);
+    if (p.d == 128) return launch_mma<128>(a, p.b, st);
+    return cudaErrorInvalidValue;
+  }
+  if (p.route != 0) return cudaErrorInvalidValue;
+  if (p.dtype == 0) return launch_typed<float>(a, p.b, p.d, st);
+  if (p.dtype == 1) return launch_typed<__nv_bfloat16>(a, p.b, p.d, st);
   return cudaErrorInvalidValue;
+}
+
+// out: {bytes of a Launch, query rows a split-route block, most splits}:
+// the wrapper checks its own constants against these once, at load.
+extern "C" int flash_attention_constants(int* out) {
+  out[0] = static_cast<int>(sizeof(Launch));
+  out[1] = kSplitRows;
+  out[2] = kMaxSplits;
+  return 0;
 }
 
 // out: {dynamic shared memory of a block in bytes, blocks an SM holds} of
@@ -716,5 +1179,16 @@ extern "C" int flash_attention_launch(
 extern "C" int flash_attention_mma_resources(int d, int* out) {
   if (d == 64) return mma_resources<64>(out);
   if (d == 128) return mma_resources<128>(out);
+  return cudaErrorInvalidValue;
+}
+
+// out: {static shared memory of a block in bytes, registers a thread,
+// blocks an SM} of the split route's kernel for dtype (0 float32, 1
+// bfloat16) at head dim d.
+extern "C" int flash_attention_split_resources(int dtype, int d, int* out) {
+  if (dtype == 0 && d == 64) return split_resources<float, 64>(out);
+  if (dtype == 0 && d == 128) return split_resources<float, 128>(out);
+  if (dtype == 1 && d == 64) return split_resources<__nv_bfloat16, 64>(out);
+  if (dtype == 1 && d == 128) return split_resources<__nv_bfloat16, 128>(out);
   return cudaErrorInvalidValue;
 }

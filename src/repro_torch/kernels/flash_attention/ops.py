@@ -9,19 +9,27 @@ strided views (a prefix of the KV cache).  On CPU tensors it runs the
 plain version in ``ref.py``; on CUDA tensors it launches a kernel of
 ``src/repro_torch/csrc/flash_attention.cu`` or raises — no fallback.
 
-Two routes, a pure function of (dtype, T, D) (:func:`_route`): bf16
-with T >= ``MMA_MIN_ROWS`` query rows (prefill) takes ``"mma"``, the
-kernel on the tensor cores; float32 at every shape and bf16 below that
-(decode) take ``"fma"``, the kernel on the CUDA cores.  A failed build
-or launch of either raises; neither route stands in for the other.
-``launch_counts()`` rises by one a launch, whichever route;
-``route_counts()`` counts the same launches by route.
+Three routes, a pure function of (dtype, T, D) (:func:`_route`): below
+``MMA_MIN_ROWS`` query rows (decode, short steps) ``"split"``, float32
+or bf16: the keys split over blocks, the splits a pure function of the
+shape (:func:`_splits`), combined in index order within the same launch;
+bf16 from ``MMA_MIN_ROWS`` rows (prefill) ``"mma"``, the kernel on the
+tensor cores; float32 from there ``"fma"``, the kernel on the CUDA
+cores.  A failed build or launch raises; no route stands in for
+another.  ``launch_counts()`` rises by one a call, whichever route;
+``route_counts()`` counts the same calls by route.
+
+The host path of a call is kept short: every size, stride, flag and
+address goes to the C launcher as one packed argument (``_LAUNCH``,
+the source's ``struct Launch``), the current stream is read as a raw
+handle, and the device is switched only when q's is not current.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import struct
 from typing import Dict, Tuple
 
 import torch
@@ -34,19 +42,39 @@ NVCC_FLAGS: Tuple[str, ...] = ()
 
 HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SCALE = {d: 1.0 / math.sqrt(d) for d in HEAD_DIMS}
 
 #: Query rows from which bf16 attention takes the tensor-core kernel: one
-#: warp's 16-row tile of ``mma.sync``.
+#: warp's 16-row tile of ``mma.sync``.  Below it every call takes "split".
 MMA_MIN_ROWS = 16
-ROUTES = ("fma", "mma")
+ROUTES = ("fma", "mma", "split")
+_ROUTE_IDS = {r: i for i, r in enumerate(ROUTES)}
+
+#: Keys a split of the split route, in multiples of which :func:`_splits`
+#: cuts the keys (16, 32 and 64 tied in probe runs on the card: PERF.md).
+KEYS_PER_SPLIT = 32
+#: Blocks past which the split route stops adding splits (long caches).
+SPLIT_BLOCKS = 512
+#: Query rows of one split-route block, and the most splits: the source's
+#: kSplitRows and kMaxSplits (checked when the library loads).
+SPLIT_ROWS = 8
+MAX_SPLITS = 16
+
+#: The C launcher's one argument: 16 int64 (addresses, the stream, strides),
+#: 13 int32 (route, dtype, sizes, flags, splits, keys a split), the scale.
+_LAUNCH = struct.Struct("<16q13if")
 
 _LIB = None
 _LAUNCHES: Dict[str, int] = {"flash_attention": 0}
 _ROUTES: Dict[str, int] = dict.fromkeys(ROUTES, 0)
+# the split route's ticket counters by (device index, stream): (tensor,
+# address); each call leaves them at 0
+_TICKETS: Dict[Tuple[int, int], Tuple[torch.Tensor, int]] = {}
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches since the last :func:`reset_launch_counts`."""
+    """Kernel calls since the last :func:`reset_launch_counts`."""
     return dict(_LAUNCHES)
 
 
@@ -55,8 +83,8 @@ def reset_launch_counts() -> None:
 
 
 def route_counts() -> Dict[str, int]:
-    """Kernel launches by route since the last :func:`reset_route_counts`
-    (at most one route a call; CPU tensors count on neither)."""
+    """Kernel calls by route since the last :func:`reset_route_counts`
+    (one route a call; CPU tensors count on none)."""
     return dict(_ROUTES)
 
 
@@ -67,21 +95,45 @@ def reset_route_counts() -> None:
 
 def _route(dtype: torch.dtype, t: int, d: int) -> str:
     """The kernel that serves q of ``dtype`` with ``t`` rows of head dim
-    ``d``: ``"mma"`` (tensor cores) or ``"fma"`` (CUDA cores)."""
-    if dtype == torch.bfloat16 and t >= MMA_MIN_ROWS and d in HEAD_DIMS:
+    ``d``: ``"split"`` (below ``MMA_MIN_ROWS`` rows), ``"mma"`` (bf16,
+    tensor cores) or ``"fma"`` (float32, CUDA cores)."""
+    if t < MMA_MIN_ROWS:
+        return "split"
+    if dtype == torch.bfloat16 and d in HEAD_DIMS:
         return "mma"
     return "fma"
+
+
+def _splits(s: int, b: int, kv: int, rows: int) -> Tuple[int, int]:
+    """(splits, keys a split) of the split route for S keys, batch B, KV
+    kv heads and ``rows`` = T·H/KV query rows a kv head: the keys cut into
+    multiples of ``KEYS_PER_SPLIT``, as many splits as there are such
+    pieces up to ``MAX_SPLITS`` and ``SPLIT_BLOCKS`` blocks in all.  Split
+    i takes keys [i·per, min((i + 1)·per, S)); none is empty."""
+    units = b * kv * -(-rows // SPLIT_ROWS)
+    pieces = -(-s // KEYS_PER_SPLIT)
+    n = max(1, min(pieces, MAX_SPLITS, SPLIT_BLOCKS // units))
+    per = -(-pieces // n) * KEYS_PER_SPLIT
+    return -(-s // per), per
 
 
 def _lib():
     global _LIB
     if _LIB is None:
-        p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        _LIB = _build.load(SOURCE, NVCC_FLAGS, {
-            "flash_attention_launch": ([i32, i32, p, p, p, p] + [i32] * 6
-                                       + [i64] * 9
-                                       + [i32, i32, i32, ctypes.c_float, p]),
-            "flash_attention_mma_resources": [i32, p]})
+        p, i32 = ctypes.c_void_p, ctypes.c_int
+        lib = _build.load(SOURCE, NVCC_FLAGS, {
+            "flash_attention_launch": [ctypes.c_char_p],
+            "flash_attention_constants": [p],
+            "flash_attention_mma_resources": [i32, p],
+            "flash_attention_split_resources": [i32, i32, p]})
+        out = (ctypes.c_int * 3)()
+        lib.flash_attention_constants(out)
+        if tuple(out) != (_LAUNCH.size, SPLIT_ROWS, MAX_SPLITS):
+            raise RuntimeError(
+                f"flash_attention.cu's Launch size, rows a split block and "
+                f"most splits {tuple(out)} do not match the wrapper's "
+                f"{(_LAUNCH.size, SPLIT_ROWS, MAX_SPLITS)}")
+        _LIB = lib
     return _LIB
 
 
@@ -96,14 +148,38 @@ def mma_resources(d: int) -> Tuple[int, int]:
     return out[0], out[1]
 
 
-def _aligned(x: torch.Tensor) -> torch.Tensor:
+def split_resources(dtype: torch.dtype, d: int) -> Tuple[int, int, int]:
+    """(static shared memory of one block in bytes, registers a thread,
+    blocks that one SM of the current card holds at once) of the split
+    route's kernel for ``dtype`` at head dim ``d``."""
+    out = (ctypes.c_int * 3)()
+    rc = _lib().flash_attention_split_resources(_DTYPES[dtype], d, out)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention split resources: CUDA error {rc}")
+    return out[0], out[1], out[2]
+
+
+def _operand(x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, ...], int]:
     """x with a contiguous last axis and 16-byte aligned rows, as the
-    kernel's vector loads need; copied only where it has neither."""
+    kernels' vector loads need (copied only where it has neither) → (x,
+    its strides, its address)."""
+    st, ptr = x.stride(), x.data_ptr()
     vec = 16 // x.element_size()
-    if (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
-            and all(st % vec == 0 for st in x.stride()[:-1])):
-        return x
-    return x.contiguous() if not x.is_contiguous() else x.clone()
+    if st[3] != 1 or ptr % 16 or st[0] % vec or st[1] % vec or st[2] % vec:
+        x = x.contiguous() if not x.is_contiguous() else x.clone()
+        st, ptr = x.stride(), x.data_ptr()
+    return x, st, ptr
+
+
+def _tickets(dev: torch.device, stream: int, n: int) -> int:
+    """Address of at least ``n`` ticket counters of the split route for
+    (``dev``, ``stream``), all 0: the kernel's combining block sets each
+    back to 0, and calls on one stream run in turn."""
+    held = _TICKETS.get((dev.index, stream))
+    if held is None or held[0].numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        held = _TICKETS[(dev.index, stream)] = (buf, buf.data_ptr())
+    return held[1]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -115,13 +191,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     keys up to that position, ``window`` > 0 only the last ``window`` of
     them.  Every key of k is valid otherwise (pass a prefix view of a
     cache to mask its unwritten tail)."""
-    devs = {q.device, k.device, v.device}
-    if devs == {torch.device("cpu")}:
+    dev = q.device
+    if (dev.type == "cpu" and k.device.type == "cpu"
+            and v.device.type == "cpu"):
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  q_offset=q_offset)
-    if len(devs) != 1 or q.device.type != "cuda":
+    if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError(f"flash_attention operands must lie together on "
-                         f"the CPU or on one CUDA device, got {devs}")
+                         f"the CPU or on one CUDA device, got "
+                         f"{ {q.device, k.device, v.device} }")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention takes q [B, T, H, D] and k, v "
                          f"[B, S, KV, D], got {tuple(q.shape)}, "
@@ -140,17 +218,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not 0 < b <= 65535 or window < 0:
         raise ValueError(f"flash_attention takes 0 < B <= 65535 and "
                          f"window >= 0, got B={b}, window={window}")
-    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lib = _lib()
     route = _route(q.dtype, t, d)
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    with torch.cuda.device(q.device):
-        rc = lib.flash_attention_launch(
-            ROUTES.index(route), _DTYPES[q.dtype], q.data_ptr(),
-            k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, s, h, kvh, d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal),
-            int(window), int(q_offset), 1.0 / math.sqrt(d),
-            torch.cuda.current_stream(q.device).cuda_stream)
+    q, qs, qp = _operand(q)
+    k, ks, kp = _operand(k)
+    v, vs, vp = _operand(v)
+    out = q.new_empty((b, t, h, d))
+    stream = (_RAW_STREAM(dev.index) if _RAW_STREAM is not None
+              else torch.cuda.current_stream(dev).cuda_stream)
+    splits, kps, ws, tickets = 1, 0, 0, 0
+    if route == "split":
+        rows = t * (h // kvh)
+        splits, kps = _splits(s, b, kvh, rows)
+        if splits > 1:
+            units = b * kvh * -(-rows // SPLIT_ROWS)
+            work = q.new_empty(units * splits * SPLIT_ROWS * (d + 2),
+                               dtype=torch.float32)
+            ws = work.data_ptr()
+            tickets = _tickets(dev, stream, units)
+    packed = _LAUNCH.pack(
+        qp, kp, vp, out.data_ptr(), ws, tickets, stream, qs[0], qs[1], qs[2],
+        ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], _ROUTE_IDS[route],
+        _DTYPES[q.dtype], b, t, s, h, kvh, d, causal, window, q_offset,
+        splits, kps, _SCALE[d])
+    if dev.index == torch.cuda.current_device():
+        rc = lib.flash_attention_launch(packed)
+    else:
+        with torch.cuda.device(dev):
+            rc = lib.flash_attention_launch(packed)
     if rc != 0:
         raise RuntimeError(f"flash_attention {route} kernel launch failed: "
                            f"CUDA error {rc}")

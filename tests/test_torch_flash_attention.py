@@ -151,21 +151,46 @@ def test_flash_wrapper_rejects_bad_operands():
 
 
 def test_route_is_a_function_of_dtype_rows_and_head_dim():
-    """bf16 from ``MMA_MIN_ROWS`` query rows up takes the tensor-core
-    kernel; float32 at any length and bf16 decode (one row) take the
-    CUDA-core kernel.  On CPU tensors neither kernel runs."""
+    """Below ``MMA_MIN_ROWS`` query rows (decode, short steps) float32 and
+    bf16 take the split-over-keys kernel; from there bf16 takes the
+    tensor-core kernel and float32 the CUDA-core one.  On CPU tensors no
+    kernel runs."""
     bf16, f32 = torch.bfloat16, torch.float32
     for d in ops.HEAD_DIMS:
+        for dtype in (bf16, f32):
+            for t in (1, 8, ops.MMA_MIN_ROWS - 1):
+                assert ops._route(dtype, t, d) == "split"
         for t in (ops.MMA_MIN_ROWS, 64, 2048):
             assert ops._route(bf16, t, d) == "mma"
-        for t in (1, 16, 2048):
             assert ops._route(f32, t, d) == "fma"
-        assert ops._route(bf16, 1, d) == "fma"
-        assert ops._route(bf16, ops.MMA_MIN_ROWS - 1, d) == "fma"
     ops.reset_route_counts()
-    q = torch.zeros(1, 32, 2, 64, dtype=bf16)
-    ops.flash_attention(q, q, q)
-    assert ops.route_counts() == {"fma": 0, "mma": 0}
+    for t in (1, 32):
+        q = torch.zeros(1, t, 2, 64, dtype=bf16)
+        ops.flash_attention(q, q, q)
+    assert ops.route_counts() == {"fma": 0, "mma": 0, "split": 0}
+
+
+@pytest.mark.parametrize("s", [1, 2, 31, 32, 33, 405, 1024, 2049, 65536])
+@pytest.mark.parametrize("b,kv,rows", [(1, 1, 1), (4, 2, 7), (4, 2, 56),
+                                       (64, 8, 16), (2, 2, 105)])
+def test_splits_tile_the_keys(s, b, kv, rows):
+    """The split route's splits cover keys [0, S) with no gap, overlap or
+    empty split, stay within the kernel's limits, and depend on the shape
+    alone: one split at S = 1, 13 of 32 keys at the serve shape (S 405,
+    B 4, KV 2, 7 rows), 16 of 64 at S 1,024."""
+    n, per = ops._splits(s, b, kv, rows)
+    assert (n, per) == ops._splits(s, b, kv, rows)
+    assert 1 <= n <= ops.MAX_SPLITS and per % ops.KEYS_PER_SPLIT == 0
+    bounds = [(i * per, min(s, (i + 1) * per)) for i in range(n)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == s
+    assert all(lo < hi for lo, hi in bounds)
+    assert all(a[1] == c[0] for a, c in zip(bounds, bounds[1:]))
+    units = b * kv * -(-rows // ops.SPLIT_ROWS)
+    assert n == 1 or n * units <= ops.SPLIT_BLOCKS
+    if s == 1:
+        assert n == 1
+    if (b, kv, rows) == (4, 2, 7) and s in (405, 1024):
+        assert (n, per) == ((13, 32) if s == 405 else (16, 64))
 
 
 CARD_CASES = [
@@ -174,6 +199,14 @@ CARD_CASES = [
     (4, 1, 129, 14, 2, 64, False, 0, 128, 0),
     (4, 1, 1024, 14, 2, 64, False, 0, 1023, 0),
     (4, 1, 405, 14, 2, 64, False, 0, 404, 1024),    # strided cache view
+    (4, 1, 1024, 14, 2, 64, False, 16, 1023, 0),    # window within a split
+    (4, 1, ops.KEYS_PER_SPLIT + 1, 14, 2, 64, False, 0,
+     ops.KEYS_PER_SPLIT, 0),                        # a last split of 1 key
+    (4, 8, 508, 14, 2, 64, True, 0, 500, 1024),     # 8 causal rows, a view
+    (4, 1, 1024, 16, 2, 128, False, 0, 1023, 2048),  # D 128 decode, a view
+    (4, 8, 508, 16, 2, 128, True, 0, 500, 1024),    # D 128, 8 causal rows
+    (4, 1, ops.KEYS_PER_SPLIT + 1, 14, 2, 128, False, 16,
+     ops.KEYS_PER_SPLIT, 0),                        # D 128, window, 1 key
     (2, 512, 512, 14, 2, 64, True, 0, 0, 0),        # prefill
     (1, 512, 512, 14, 2, 64, True, 96, 0, 0),       # window
     (2, 200, 200, 8, 2, 128, True, 0, 0, 0),        # D 128 GQA, ragged
@@ -190,8 +223,8 @@ CARD_CASES = [
 def test_flash_kernel_matches_plain_on_card(case, name, cuda_device):
     """With ``cache_len`` > 0, k and v are the prefix views
     ``cache[:, :s]`` of [b, cache_len, kv, d] buffers, the layout the
-    decode step hands the kernel.  bf16 with more than one query row
-    takes the tensor-core route, everything else the CUDA-core route; a
+    decode step hands the kernel.  Each case takes the route of
+    ``ops._route`` (below 16 rows the split route, f32 and bf16 alike); a
     second call gives the same bits."""
     b, t, s, h, kv, d, causal, window, q_offset, cache_len = case
     _, ts = _qkv(b, t, cache_len or s, h, kv, d, name)
@@ -203,8 +236,8 @@ def test_flash_kernel_matches_plain_on_card(case, name, cuda_device):
                               q_offset=q_offset)
     torch.cuda.synchronize()
     assert ops.launch_counts()["flash_attention"] == before + 1
-    route = "mma" if name == "bf16" and t > 1 else "fma"
-    assert ops.route_counts() == {"fma": 0, "mma": 0, route: 1}
+    route = ops._route(q.dtype, t, d)
+    assert ops.route_counts() == {"fma": 0, "mma": 0, "split": 0, route: 1}
     want = ref.attention_ref(q, k, v, causal=causal, window=window,
                              q_offset=q_offset)
     np.testing.assert_allclose(out.float().cpu().numpy(),
