@@ -17,8 +17,11 @@ Phases, each fatal on any error:
    versions on the card (f32 2e-5, bf16 2e-2) at the serve paths' decode
    shapes and at D 128 (split edges, a window, causal rows at an offset)
    and the prefill shapes, with the route each flash case took and the same bits
-   on a second call; the flash kernels' registers, spills, shared memory
-   and tensor-core (HMMA) instructions;
+   on a second call; RMSNorm at every route, vector width and instance
+   (``RMSNORM_CASES``: ragged blocks, one row, a misaligned x, the widest
+   row); the flash kernels' registers, spills, shared memory and
+   tensor-core (HMMA) instructions, and each RMSNorm instance's
+   registers, spills and blocks an SM;
 4. serve qwen2-0.5b at full width through ``ServeEngine`` (8 requests,
    4 slots, random bf16 weights from a seed) on the kernels, with the
    counts set to 0 just before and read just after (every flash call on
@@ -28,8 +31,9 @@ Phases, each fatal on any error:
 5. the prefill forward at full width (B 2, T 2048) on both backends,
    every flash call on the tensor-core route;
 6. time each kernel, its plain version and its library call (flash
-   decode at S 405 and 1,024, with the host time of a call; prefill at
-   D 64 and D 128), the serve runs and the forward with CUDA events;
+   decode at S 405 and 1,024; prefill at D 64 and D 128; RMSNorm at
+   qwen2's rows; each with its traced device time and the host time of
+   a call), the serve runs and the forward with CUDA events;
    trace a decode step and the forward with torch.profiler (device busy
    share, kernel launches, the largest kernels and host ops, flash
    attention's share of the forward);
@@ -40,8 +44,9 @@ Phases, each fatal on any error:
    the same replay; the prefill forward at B 2, T 4096 (64 SSD scan
    calls) on both backends; times and traces as in 6, each SSD pass's
    time, registers, spills, shared memory and tensor-core (HMMA)
-   instructions, and the SSD's share of the forward's device time; print
-   the ``kernels`` line.
+   instructions, RMSNorm at mamba2's four rows (decode and forward, the
+   pre-norm and the gated norm), and the SSD's share of the forward's
+   device time; print the ``kernels`` line.
 
 Float32 matrix products run in full float32: TF32 is switched off for
 matmuls and cuDNN.  The last line of standard output is
@@ -89,6 +94,15 @@ SOURCES = {
     "rmsnorm": "src/repro_torch/csrc/rmsnorm.cu",
     "ssd": "src/repro_torch/csrc/ssd.cu",
 }
+
+#: RMSNorm cases on the card, (shape, storage offset of x in elements):
+#: every route, vector width and instance of ``rmsnorm.cu`` in f32 and bf16
+RMSNORM_CASES = (
+    ((4, 896), 0), ((4096, 896), 0),    # warp route, vectors (qwen2)
+    ((4097, 896), 0), ((1, 896), 0),    # a ragged last block, one row
+    ((5, 1001), 0), ((64, 896), 1),     # warp route, one element an access
+    ((4, 5120), 0), ((8192, 2560), 0),  # block route, vectors (mamba2)
+    ((3, 5121), 0), ((3, 8192), 0))     # one element an access; widest
 
 # serve runs (qwen2-0.5b and mamba2-2.7b at full width)
 SLOTS, N_REQUESTS, NEW_TOKENS, MAX_SEQ = 4, 8, 16, 1024
@@ -209,6 +223,24 @@ def profile_ms(fn, steps: int, match: tuple = ()) -> dict:
                     for e in top_dev],
         top_host=[(e.key[:40], e.self_cpu_time_total / 1e3 / steps,
                    e.count // steps) for e in top_host])
+
+
+def traced_call(fn, steps: int = 100) -> dict:
+    """:func:`profile_ms` of ``steps`` calls of fn, with ``device_ms`` and
+    ``kernel_launches`` a call recomputed as the device time of a traced
+    launch times the launches a call (rounded): the tracer can miss the
+    first launches of a window, all of them in a short one.  Traces again,
+    with twice the calls, where it saw none; fails after three tries."""
+    for _ in range(3):
+        prof = profile_ms(fn, steps=steps)
+        seen = prof["kernel_launches"]
+        if seen >= 0.5:
+            per_call = round(seen)
+            prof["device_ms"] *= per_call / seen
+            prof["kernel_launches"] = per_call
+            return prof
+        steps *= 2
+    fail("the profiler saw no device launch in three traces")
 
 
 def ops_per_pair() -> float:
@@ -545,30 +577,42 @@ def lm_kernel_checks(dev) -> dict:
                 fail(f"flash_attention {label} {dtype} gives other bits on a "
                      f"second run")
             errs["flash_attention"] = max(errs["flash_attention"], err)
-    errs["rmsnorm"] = rmsnorm_checks("3", ((SLOTS, 896), (4096, 896)), dev)
+    errs["rmsnorm"] = rmsnorm_checks("3", RMSNORM_CASES, dev,
+                                     every_instance=True)
     return errs
 
 
-def rmsnorm_checks(tag, shapes, dev) -> float:
-    """RMSNorm against its plain version on the card at ``shapes``, f32
-    and bf16, and the same bits on a second run → max abs error."""
+def rmsnorm_checks(tag, cases, dev, every_instance=False) -> float:
+    """RMSNorm against its plain version on the card at ``cases`` of
+    (shape, storage offset of x in elements), f32 and bf16, with the plan
+    each took and the same bits on a second run → max abs error.  With
+    ``every_instance`` each of the kernel's 8 instances (dtype, route,
+    vector width) must have run."""
     import torch
     from repro_torch.kernels.rmsnorm import ops as rms, ref as rms_ref
 
     gen = torch.Generator(device=dev).manual_seed(5)
-    worst = 0.0
+    worst, ran = 0.0, set()
     for dtype in (torch.float32, torch.bfloat16):
         tol = LM_TOL[str(dtype).split(".")[1]]
-        for shape in shapes:
+        for shape, offset in cases:
             x = _rand(shape, gen, dtype, dev)
+            if offset:
+                x = torch.empty(x.numel() + offset, dtype=dtype, device=dev)[
+                    offset:].view(shape).copy_(x)
             sc = torch.randn(shape[-1], generator=gen, device=dev)
             out = rms.rmsnorm(x, sc)
             torch.cuda.synchronize()
+            plan = rms._plan(dtype, shape[-1], x.data_ptr() % 16 == 0)
+            ran.add((dtype, plan.route, plan.vec))
             want = rms_ref.rmsnorm_ref(x, sc)
             diff = (out.float() - want.float()).abs()
             err = float(diff.max())
-            log(f"[{tag}] rmsnorm {list(shape)} {dtype}: max abs err "
-                f"{err:.3e} (tolerance rtol=atol={tol})")
+            at = f" at offset {offset}" if offset else ""
+            log(f"[{tag}] rmsnorm {list(shape)}{at} {dtype}: {plan.route} "
+                f"route, {plan.vec} elements an access, {plan.threads} "
+                f"threads a block; max abs err {err:.3e} (tolerance "
+                f"rtol=atol={tol})")
             if not bool(torch.isfinite(out).all()) or float(
                     (diff - tol * want.float().abs()).max()) > tol:
                 fail(f"rmsnorm {list(shape)} {dtype} disagrees with its "
@@ -576,6 +620,9 @@ def rmsnorm_checks(tag, shapes, dev) -> float:
             if not torch.equal(out, rms.rmsnorm(x, sc)):
                 fail("rmsnorm gives other bits on a second run")
             worst = max(worst, err)
+    if every_instance and len(ran) != 8:
+        fail(f"rmsnorm ran {len(ran)} of its 8 instances: "
+             f"{sorted(map(str, ran))}")
     return worst
 
 
@@ -899,7 +946,12 @@ def log_profiles(tag, name, prof, card) -> None:
 
 
 def rmsnorm_times(rows, d, dev) -> dict:
-    """RMSNorm kernel, plain version and ``F.rms_norm`` at [rows, d] bf16."""
+    """RMSNorm kernel, plain version and ``F.rms_norm`` at [rows, d] bf16,
+    with the bound.  Beside the CUDA-event times, as in
+    :func:`flash_times`: the traced device time and device launches of a
+    call (:func:`traced_call`), the host µs of a call (:func:`host_us`)
+    and the profiler's CPU self time of a call, for the kernel and the
+    library."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.rmsnorm import ops as rms, ref as rms_ref
@@ -908,14 +960,24 @@ def rmsnorm_times(rows, d, dev) -> dict:
     x = _rand((rows, d), g, torch.bfloat16, dev)
     scale = torch.ones(d, device=dev)
     sb = scale.to(torch.bfloat16)
+    kern = lambda: rms.rmsnorm(x, scale)                      # noqa: E731
+    lib = lambda: F.rms_norm(x, (d,), sb, 1e-6)               # noqa: E731
     n_bytes = 2 * rows * d * 2 + 4 * d
     b_ms, b_by = bound(n_bytes, 4 * rows * d, FP32_FLOPS)
+    prof_k, prof_l = traced_call(kern), traced_call(lib)
+    (enq_k, end_k), (enq_l, end_l) = host_us(kern), host_us(lib)
     return dict(
-        shape=[rows, d],
-        ms=cuda_ms(lambda: rms.rmsnorm(x, scale)),
+        shape=[rows, d], ms=cuda_ms(kern),
         plain_ms=cuda_ms(lambda: rms_ref.rmsnorm_ref(x, scale)),
-        library_ms=cuda_ms(lambda: F.rms_norm(x, (d,), sb, 1e-6)),
-        bound_ms=b_ms, bound_by=b_by, bytes=n_bytes)
+        library_ms=cuda_ms(lib), bound_ms=b_ms, bound_by=b_by,
+        bytes=n_bytes, device_ms=prof_k["device_ms"],
+        library_device_ms=prof_l["device_ms"],
+        device_launches=prof_k["kernel_launches"],
+        library_device_launches=prof_l["kernel_launches"],
+        host_us=enq_k, host_end_us=end_k, library_host_us=enq_l,
+        library_host_end_us=end_l,
+        host_self_us=prof_k["host_self_ms"] * 1e3,
+        library_host_self_us=prof_l["host_self_ms"] * 1e3)
 
 
 def log_times(tag, times, card) -> None:
@@ -991,6 +1053,7 @@ def lm_path(dev, card, built) -> tuple:
 
     errs = lm_kernel_checks(dev)
     flash_build = flash_build_report(built)
+    rms_build = rmsnorm_build_report(built)
 
     # ---- 4. serve at full width ------------------------------------------
     cfg = get_config("qwen2-0.5b")
@@ -1057,7 +1120,8 @@ def lm_path(dev, card, built) -> tuple:
         "card": card, "model": cfg.name, "params": n_params,
         "param_bytes": param_bytes, "serve": serve, "forward": fwd,
         "profile": {"decode": prof_decode, "forward": prof_fwd},
-        "kernels": times, "max_abs_err": errs, "flash_build": flash_build}))
+        "kernels": times, "max_abs_err": errs, "flash_build": flash_build,
+        "rmsnorm_build": rms_build}))
 
     rows = []
     for name in ("flash_attention", "rmsnorm"):
@@ -1074,8 +1138,10 @@ def lm_path(dev, card, built) -> tuple:
     host_keys = ("host_us", "library_host_us", "host_self_us",
                  "library_host_self_us", "device_launches",
                  "library_device_launches")
-    rows[0].update({k: times["flash_attention decode"][k]
-                    for k in host_keys + ("device_ms", "library_device_ms")})
+    for row in rows:
+        row.update({k: times[f"{row['name']} decode"][k]
+                    for k in host_keys + ("device_ms",
+                                          "library_device_ms")})
     for label, key in (("decode_s1024", "flash_attention decode S=1024"),
                        ("prefill", "flash_attention prefill"),
                        ("prefill_d128", "flash_attention prefill D=128")):
@@ -1374,6 +1440,45 @@ def flash_build_report(built) -> dict:
     return report
 
 
+def rmsnorm_build_report(built) -> dict:
+    """Registers and spills of each RMSNorm instance (build log), and its
+    registers, local memory and blocks an SM at the block size of the
+    main path's rows (D 896, 2560, 5120; D 1001 and 5121 for the
+    one-element width) → {"route vecN dtype DN": {...}}."""
+    import re
+    import torch
+    from repro_torch.kernels.rmsnorm import ops as rms
+
+    def key(symbol):
+        m = re.search(
+            r"rmsnorm_(warp|block)_kernelI(f|13__nv_bfloat16)Li(\d+)E", symbol)
+        if m:
+            dtype = "f32" if m.group(2) == "f" else "bf16"
+            return f"{m.group(1)} vec{m.group(3)} {dtype}"
+        return None
+
+    logged = kernel_build_report(built, "rmsnorm.cu", key)
+    report = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for d in (896, 1001, 2560, 5120, 5121):
+            plan = rms._plan(dtype, d, True)
+            name = f"{plan.route} vec{plan.vec} {tag}"
+            r = dict(logged.get(name, {}), d=d, threads=plan.threads)
+            regs, local, r["blocks_per_sm"] = rms.resources(dtype, plan)
+            r.setdefault("registers", regs)   # where the build log is empty
+            r["local_bytes"] = local
+            report[f"{name} D{d}"] = r
+            log(f"[3] rmsnorm {name} at D {d} ({plan.threads} threads a "
+                f"block): {r['registers']} registers, spill stores/loads "
+                f"{r.get('spill_stores', '?')}/{r.get('spill_loads', '?')} "
+                f"bytes, {local} bytes of local memory, "
+                f"{r['blocks_per_sm']} blocks an SM")
+    if len({k.rsplit(" ", 1)[0] for k in report}) != 8:
+        fail(f"rmsnorm build report covers {sorted(report)}, not the 8 "
+             f"instances")
+    return report
+
+
 def ssm_path(dev, card, rms_err, built) -> tuple:
     """mamba2-2.7b: phase 7 → (kernel rows, launches per kernel)."""
     import torch
@@ -1385,7 +1490,8 @@ def ssm_path(dev, card, rms_err, built) -> tuple:
     ssd_err, ssd_pass_err = ssd_kernel_checks(dev)
     ssd_build = ssd_build_report(built)
     rms_err = max(rms_err, rmsnorm_checks(
-        "7", ((SLOTS, 2560), (SLOTS, 5120), (SSM_B * SSM_T, 5120)), dev))
+        "7", (((SLOTS, 2560), 0), ((SLOTS, 5120), 0),
+              ((SSM_B * SSM_T, 5120), 0)), dev))
 
     # ---- serve at full width from the recurrent state ----------------------
     cfg = get_config("mamba2-2.7b")
@@ -1511,6 +1617,8 @@ def ssm_path(dev, card, rms_err, built) -> tuple:
         + f" ({card})")
     del x, dt, a, bm, cm, cum, dtc, st, cb, prev
     times["rmsnorm decode"] = rmsnorm_times(SLOTS, cfg.d_model, dev)
+    times["rmsnorm gated decode"] = rmsnorm_times(SLOTS, di, dev)
+    times["rmsnorm prefill"] = rmsnorm_times(SSM_B * SSM_T, cfg.d_model, dev)
     times["rmsnorm gated prefill"] = rmsnorm_times(SSM_B * SSM_T, di, dev)
     log_times("7", times, card)
 

@@ -104,12 +104,86 @@ def test_rmsnorm_wrapper_rejects_bad_operands():
         ops.rmsnorm(meta, torch.ones(8, device="meta"))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(4, 896), (4096, 896), (3, 8192)])
+PLAN_DIMS = (1, 7, 8, 100, 896, 1000, 1001, 2560, 5120, 8192)
+
+
+def _row_slots(plan, d):
+    """The vector index that each (thread, item) of one row loads, as the
+    kernel computes it: thread t of the row, item i → t + i·threads_a_row;
+    slots past the row's vectors load nothing."""
+    per_row = plan.threads // plan.rows
+    t = np.arange(per_row)[:, None]
+    i = np.arange(plan.items)[None, :]
+    slots = (t + i * per_row).ravel()
+    return slots[slots < d // plan.vec]
+
+
+@pytest.mark.parametrize("aligned", [True, False])
 @pytest.mark.parametrize("name", ["f32", "bf16"])
-def test_rmsnorm_kernel_matches_plain_on_card(shape, name, cuda_device):
+@pytest.mark.parametrize("d", PLAN_DIMS)
+def test_plan_covers_each_element_once(d, name, aligned):
+    dtype = DTYPES[name][1]
+    plan = ops._plan(dtype, d, aligned)
+    assert plan == ops._plan(dtype, d, aligned)
+    assert plan.route in ops.ROUTES
+    assert d % plan.vec == 0 and plan.vec * plan.items == ops.ELEMS_PER_THREAD
+    assert plan.vec * torch.empty(0, dtype=dtype).element_size() in (2, 4, 16)
+    per_row = plan.threads // plan.rows
+    assert per_row % 32 == 0 and plan.threads <= 256
+    # every vector of the row once, so every element once
+    np.testing.assert_array_equal(np.sort(_row_slots(plan, d)),
+                                  np.arange(d // plan.vec))
+    assert per_row * plan.items * plan.vec >= d
+    if plan.route == "warp":
+        assert d <= ops.WARP_MAX_D and per_row == 32
+        assert plan.rows == ops.WARP_ROWS
+    else:
+        assert d > ops.WARP_MAX_D and plan.rows == 1
+        assert per_row == 32 * -(-d // ops.WARP_MAX_D)    # sized from D
+    if not aligned:
+        assert plan.vec == 1
+
+
+@pytest.mark.parametrize("name", ["f32", "bf16"])
+@pytest.mark.parametrize("d, route", [(896, "warp"), (2560, "block"),
+                                      (5120, "block")])
+def test_plan_routes_main_path_rows_in_vectors(d, route, name):
+    dtype = DTYPES[name][1]
+    plan = ops._plan(dtype, d, True)
+    assert plan.route == route
+    assert plan.vec == (8 if name == "bf16" else 4)       # 16 bytes
+    assert ops._plan(dtype, d, False).vec == 1            # unaligned
+    assert ops._plan(dtype, d, False).route == route
+
+
+# (shape, storage offset in elements): every route, width and instance
+CARD_CASES = [
+    ((4, 896), 0),        # warp route, vectors (qwen2 decode)
+    ((4096, 896), 0),     # warp route, vectors (qwen2 forward)
+    ((4097, 896), 0),     # rows not a multiple of the rows a block
+    ((1, 896), 0),        # one row
+    ((5, 1001), 0),       # warp route, one element an access
+    ((64, 896), 1),       # x misaligned by one element: one element
+    ((4, 5120), 0),       # block route, vectors (mamba2 gated decode)
+    ((8192, 2560), 0),    # block route, vectors (mamba2 forward)
+    ((3, 5121), 0),       # block route, one element an access
+    ((3, 8192), 0),       # the widest row
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, offset", CARD_CASES)
+@pytest.mark.parametrize("name", ["f32", "bf16"])
+def test_rmsnorm_kernel_matches_plain_on_card(shape, offset, name,
+                                              cuda_device):
     _, _, xt, st = _inputs(shape, name)
-    x, s = xt.to(cuda_device), st.to(cuda_device)
+    s = st.to(cuda_device)
+    x = xt.to(cuda_device)
+    if offset:
+        buf = torch.empty(x.numel() + offset, dtype=x.dtype,
+                          device=cuda_device)
+        x = buf[offset:].view(shape).copy_(x)
+        assert x.is_contiguous() and x.data_ptr() % 16
     before = ops.launch_counts()["rmsnorm"]
     out = ops.rmsnorm(x, s)
     torch.cuda.synchronize()
