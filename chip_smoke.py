@@ -7,12 +7,15 @@ Phases, each fatal on any error:
 
 1. build every CUDA kernel of the port from ``src/repro_torch/csrc`` with
    nvcc, one compiler per source, all at once; print registers and spills;
-2. DSE: hold the count-terms kernels against their plain torch versions at
-   ``extended_grid()`` and ``mega_grid()`` x 18 networks (max relative
-   error <= 1e-12, atol 0, zeros exact); drive the DSE path (the batched
-   engine, the quickstart steps, the §IV.A chip) with the launch counts
-   set to 0 just before and read just after, and check its outputs
-   against the plain path on the card and against a CPU run;
+2. DSE: the count-terms kernels' registers, spills and blocks an SM;
+   hold them against their plain torch versions at ``extended_grid()``,
+   one 9,800-point chunk of ``mega_grid()`` and the whole of it x 18
+   networks (the 12 integer terms bit for bit, terms 8 and 13 within
+   1e-12 relative, atol 0, zeros exact; the same bits on a second call);
+   drive the DSE path (the batched engine, the quickstart steps, the
+   §IV.A chip) with the launch counts set to 0 just before and read just
+   after, and check its outputs against the plain path on the card and
+   against a CPU run;
 3. LM kernels: hold flash attention and RMSNorm against their plain
    versions on the card (f32 2e-5, bf16 2e-2) at the serve paths' decode
    shapes and at D 128 (split edges, a window, causal rows at an offset)
@@ -30,10 +33,13 @@ Phases, each fatal on any error:
    logits to bf16 tolerance;
 5. the prefill forward at full width (B 2, T 2048) on both backends,
    every flash call on the tensor-core route;
-6. time each kernel, its plain version and its library call (flash
-   decode at S 405 and 1,024; prefill at D 64 and D 128; RMSNorm at
-   qwen2's rows; each with its traced device time and the host time of
-   a call), the serve runs and the forward with CUDA events;
+6. time each kernel, its plain version and its library call (the
+   count-terms kernels by events, traced device time and host µs a call,
+   beside a bound counted on the kernel's own decomposition; an
+   ``evaluate_networks`` call's wall time, trace and host split by stage;
+   flash decode at S 405 and 1,024; prefill at D 64 and D 128; RMSNorm
+   at qwen2's rows; each with its traced device time and the host time
+   of a call), the serve runs and the forward with CUDA events;
    trace a decode step and the forward with torch.profiler (device busy
    share, kernel launches, the largest kernels and host ops, flash
    attention's share of the forward);
@@ -243,39 +249,64 @@ def traced_call(fn, steps: int = 100) -> dict:
     fail("the profiler saw no device launch in three traces")
 
 
-def ops_per_pair() -> float:
-    """Elementwise operations of the plain count-terms program for one
-    (config row, layer) pair, counted on a small CPU input: every aten op
-    whose output covers the whole [n_u, L] tile counts once (a floor
-    division is one operation here, so the bound is a lower bound)."""
+def plain_ops_per_pair() -> dict:
+    """Elementwise operations of the count-terms programs per (row, layer)
+    pair, counted on a small CPU input (the 150-point grid, AlexNet):
+    every aten op whose output covers a whole [n, L] tile counts once, n
+    the mapping-unique rows ("m") or the count-unique rows ("u"); a
+    segment sum counts one add per element it reads; views, copies,
+    gathers and negations count nothing (a floor or ceiling division is
+    one operation, so the bound is a lower bound).  count_terms runs its
+    own decomposition (``ref.count_term_sums_split``: the mapping and the
+    GB_psum-free terms a mapping row, A and B a count row), count_layers
+    the plain mapping and terms on the count rows.
+    → {kernel: {"m": ops, "u": ops}}"""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
     from repro_torch.core import accelerator, energymodel, topology
     from repro_torch.kernels.count_terms import ref
 
-    lay_np, _ = energymodel._stack_networks(
+    lay_np, seg = energymodel._stack_networks(
         {"AlexNet": topology.get_network("AlexNet")})
     lay = {k: torch.as_tensor(v)[None, :] for k, v in lay_np.items()}
-    _, cfg_u, _, _, _ = energymodel._prepare_fields(
-        accelerator.ConfigGrid.product().fields, torch.device("cpu"), "cuda")
-    n_u, n_l = cfg_u["rows"].shape[0], lay["m"].shape[1]
+    cfg_m, cfg_u, inv_m, _, _ = energymodel._prepare_fields(
+        accelerator.ConfigGrid.product().fields, torch.device("cpu"))
+    n_m, n_u, n_l = cfg_m["rows"].shape[0], cfg_u["rows"].shape[0], \
+        lay["m"].shape[1]
+    if not 1 < n_m < n_u:
+        fail("the operation count needs more than one mapping row and "
+             "fewer mapping rows than count rows")
     skip = ("view", "expand", "unsqueeze", "stack", "cat", "select", "slice",
             "clone", "copy", "empty", "ones_like", "zeros_like", "lift",
-            "detach", "_to_copy", "alias", "as_strided", "unbind", "sum")
-    count = [0]
+            "detach", "_to_copy", "alias", "as_strided", "unbind", "index",
+            "neg")
 
-    class Count(TorchDispatchMode):
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
-            name = func.__name__
-            if (isinstance(out, torch.Tensor) and out.numel() == n_u * n_l
-                    and not any(s in name for s in skip)):
-                count[0] += 1
-            return out
+    def count(fn):
+        per = {n_m: 0, n_u: 0}
 
-    with Count():
-        ref.count_term_layers_ref(cfg_u, lay)
-    return float(count[0])
+        class Count(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                name = func.__name__
+                if name.startswith("sum"):
+                    x = args[0]
+                    if x.dim() == 2 and x.shape[0] in per:
+                        per[x.shape[0]] += x.numel()
+                elif (isinstance(out, torch.Tensor)
+                      and not any(w in name for w in skip)):
+                    for n in per:
+                        if out.numel() == n * n_l:
+                            per[n] += out.numel()
+                return out
+
+        with Count():
+            fn()
+        return {"m": per[n_m] / (n_m * n_l), "u": per[n_u] / (n_u * n_l)}
+
+    return {"count_terms": count(lambda: ref.count_term_sums_split(
+                seg, cfg_m, cfg_u, lay, inv_m)),
+            "count_layers": count(lambda: ref.count_term_layers_ref(
+                cfg_u, lay))}
 
 
 # ---------------------------------------------------------------------------
@@ -310,7 +341,79 @@ def build_all() -> dict:
 # 2. DSE path: the count-terms kernels
 # ---------------------------------------------------------------------------
 
-def dse_path(dev, card) -> list:
+#: Count terms that divide by the active PEs; every other is an integer
+#: below 2^53 at the DSE grids, held bit for bit.
+FLOAT_TERMS = (8, 13)
+#: Points of one chunk of the mega grid on the DSE path.
+MEGA_CHUNK = 9800
+
+
+def count_terms_build_report(built) -> dict:
+    """Registers and spills (build log) of the two count-terms kernels, and
+    their registers, local memory and blocks an SM at their block sizes."""
+    from repro_torch.kernels.count_terms import ops
+
+    def key(symbol):
+        for name in ("count_terms", "count_layers"):
+            if f"{name}_kernel" in symbol:
+                return name
+        return None
+
+    report = kernel_build_report(built, "count_terms.cu", key)
+    for name in ("count_terms", "count_layers"):
+        r = report.setdefault(name, {})
+        regs, local, r["blocks_per_sm"] = ops.resources(name)
+        r.setdefault("registers", regs)
+        r["local_bytes"] = local
+        log(f"[2] {name}_kernel: {r['registers']} registers, spill "
+            f"stores/loads {r.get('spill_stores', '?')}/"
+            f"{r.get('spill_loads', '?')} bytes, {local} bytes of local "
+            f"memory, {r['blocks_per_sm']} blocks an SM")
+    return report
+
+
+#: The stages of an ``evaluate_networks`` call, as the engine marks them.
+SPLIT_STAGES = ("layer stacking", "layer host-to-device", "config columns",
+                "count dedup", "mapping dedup", "config host-to-device",
+                "heavy stage", "gather-combine", "device-to-host")
+
+
+def evaluate_split(fields, nets, dev, reps: int = REPS) -> dict:
+    """Host split of ``evaluate_networks(fields, nets)`` on the card: the
+    engine's own stage marks (``energymodel._stage_hook``), each preceded
+    by ``torch.cuda.synchronize()``, read on the host clock → {stage:
+    median ms over ``reps`` calls, "total": median ms a call}."""
+    import torch
+    from repro_torch.core import energymodel as em
+
+    def once():
+        ms = {}
+        last = [time.perf_counter()]
+
+        def mark(stage):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            ms[stage] = ms.get(stage, 0.0) + (now - last[0]) * 1e3
+            last[0] = now
+
+        em._stage_hook = mark
+        try:
+            em.evaluate_networks(fields, nets, device=dev)
+        finally:
+            em._stage_hook = None
+        if set(ms) != set(SPLIT_STAGES):
+            fail(f"evaluate_networks marked stages {sorted(ms)}, expected "
+                 f"{sorted(SPLIT_STAGES)}")
+        return ms
+
+    once()
+    runs = [once() for _ in range(reps)]
+    split = {k: statistics.median(r[k] for r in runs) for k in SPLIT_STAGES}
+    split["total"] = statistics.median(sum(r.values()) for r in runs)
+    return split
+
+
+def dse_path(dev, card, built) -> list:
     import numpy as np
     import torch
     from repro_torch.core import (accelerator, dse, energymodel as em,
@@ -318,54 +421,70 @@ def dse_path(dev, card) -> list:
     from repro_torch.kernels.count_terms import ops, ref
 
     nets = {n: topology.get_network(n) for n in topology.NETWORKS}
-    grids = {"extended": accelerator.extended_grid(),
-             "mega": accelerator.mega_grid()}
+    mega = accelerator.mega_grid()
+    grids = {"extended": accelerator.extended_grid().fields,
+             "mega_chunk": {k: v[:MEGA_CHUNK] for k, v in mega.fields.items()},
+             "mega": mega.fields}
     lay_np, seg = em._stack_networks(nets)
     lay = {k: torch.as_tensor(v).to(dev)[None, :] for k, v in lay_np.items()}
     n_l, n_net = lay["m"].shape[1], len(seg)
+    int_terms = [k for k in range(ops.N_TERMS) if k not in FLOAT_TERMS]
 
     def operands(fields):
-        return em._prepare_fields(fields, dev, "cuda")[1]
+        cfg_m, cfg_u, inv_m, _, _ = em._prepare_fields(fields, dev)
+        return cfg_m, cfg_u, inv_m
 
     kernels = {
-        "count_terms": (lambda c: ops.count_term_sums(c, lay, seg),
-                        lambda c: ref.count_term_sums_ref(c, lay, seg)),
-        "count_layers": (lambda c: ops.count_term_layers(c, lay),
-                         lambda c: ref.count_term_layers_ref(c, lay)),
+        "count_terms": (
+            lambda o: ops.count_term_sums(seg, o[0], o[1], lay, o[2]),
+            lambda o: ref.count_term_sums_ref(seg, o[0], o[1], lay, o[2])),
+        "count_layers": (lambda o: ops.count_term_layers(o[1], lay),
+                         lambda o: ref.count_term_layers_ref(o[1], lay)),
     }
+    build = count_terms_build_report(built)
 
     # kernels against their plain versions on the card
     per_grid = {k: {} for k in kernels}
-    for gname, grid in grids.items():
-        cfg_u = operands(grid.fields)
-        n_u = cfg_u["rows"].shape[0]
+    for gname, fields in grids.items():
+        o = operands(fields)
+        n_m, n_u = o[0]["rows"].shape[0], o[1]["rows"].shape[0]
         for kname, (kern, plain) in kernels.items():
-            out = torch.stack(kern(cfg_u))
+            out = torch.stack(kern(o))
             torch.cuda.synchronize()
-            want = plain(cfg_u)
+            want = plain(o)
             torch.cuda.synchronize()
+            again = torch.stack(kern(o))
+            same_bits = torch.equal(out, again)
             diff = (out - want).abs()
             rel = float((diff / want.abs().clamp_min(1e-300)).max())
             zeros = bool(((out == 0) == (want == 0)).all())
-            exact = float((out == want).double().mean())
+            exact = int((out == want).sum()) / out.numel()
+            int_exact = (int((out[int_terms] == want[int_terms]).sum())
+                         / out[int_terms].numel())
             finite = bool(torch.isfinite(out).all())
             per_grid[kname][gname] = dict(
-                n_u=n_u, shape=list(out.shape), max_rel_err=rel,
-                max_abs_err=float(diff.max()), exact_share=exact)
-            log(f"[2] {kname} at {gname} {tuple(out.shape)}: max_rel_err "
-                f"{rel:.3e}, zeros match {zeros}, bit-equal share {exact}")
-            if not (rel <= RTOL and zeros and finite):
+                n_m=n_m, n_u=n_u, shape=list(out.shape), max_rel_err=rel,
+                max_abs_err=float(diff.max()), exact_share=exact,
+                int_terms_exact_share=int_exact, same_bits=same_bits)
+            log(f"[2] {kname} at {gname} {tuple(out.shape)} ({n_m} mapping "
+                f"rows): max_rel_err {rel:.3e}, zeros match {zeros}, "
+                f"bit-equal share {exact} (integer terms {int_exact}), same "
+                f"bits on a second call {same_bits}")
+            if not (rel <= RTOL and zeros and finite and same_bits):
                 fail(f"{kname} disagrees with its plain version at {gname}")
-            del out, want, diff
+            if int_exact != 1.0 or (kname == "count_layers" and exact != 1.0):
+                fail(f"{kname} at {gname} is not bit-equal to its plain "
+                     f"version on the integer terms")
+            del out, want, again, diff
             torch.cuda.empty_cache()
 
     # the DSE path, with the counts set to 0 just before and read just after
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    e_ext, t_ext = em.evaluate_networks(grids["extended"], nets)
-    e_pl, t_pl = em.evaluate_networks(grids["extended"], nets, per_layer=True)
-    e_mega, t_mega = em.evaluate_networks(grids["mega"], nets,
-                                          chunk_size=9800)
+    e_ext, t_ext = em.evaluate_networks(accelerator.extended_grid(), nets)
+    e_pl, t_pl = em.evaluate_networks(accelerator.extended_grid(), nets,
+                                      per_layer=True)
+    e_mega, t_mega = em.evaluate_networks(mega, nets, chunk_size=MEGA_CHUNK)
     cfg = accelerator.AcceleratorConfig(array_rows=16, array_cols=16,
                                         gb_psum_kb=54, gb_ifmap_kb=54)
     report = em.simulate_network(cfg, nets["ResNet50"], "ResNet50")
@@ -385,7 +504,8 @@ def dse_path(dev, card) -> list:
     if not all(launches[k] > 0 for k in kernels):
         fail(f"a kernel of the DSE path was never launched: {launches}")
 
-    n_e, n_m = grids["extended"].n, grids["mega"].n
+    ext = accelerator.extended_grid()
+    n_e, n_m = ext.n, mega.n
     n_layer = int(em.network_layer_counts(nets).max())
     for name, arr, shape in (
             ("extended", e_ext, (n_e, n_net)), ("extended t", t_ext, (n_e, n_net)),
@@ -396,12 +516,12 @@ def dse_path(dev, card) -> list:
                  f"or non-finite / negative values")
     np.testing.assert_allclose(e_pl.sum(-1), e_ext, rtol=RTOL)
     np.testing.assert_allclose(t_pl.sum(-1), t_ext, rtol=RTOL)
-    e_plain, t_plain = em.evaluate_networks(grids["extended"], nets,
-                                            device=dev, backend="torch")
+    e_plain, t_plain = em.evaluate_networks(ext, nets, device=dev,
+                                            backend="torch")
     np.testing.assert_allclose(e_ext, e_plain, rtol=RTOL, atol=0)
     np.testing.assert_allclose(t_ext, t_plain, rtol=RTOL, atol=0)
     sub = np.arange(0, n_m, 7)
-    e_sub, t_sub = em.evaluate_networks(grids["mega"].take(sub), nets,
+    e_sub, t_sub = em.evaluate_networks(mega.take(sub), nets,
                                         device=dev, backend="torch")
     np.testing.assert_allclose(e_mega[sub], e_sub, rtol=RTOL, atol=0)
     np.testing.assert_allclose(t_mega[sub], t_sub, rtol=RTOL, atol=0)
@@ -436,60 +556,88 @@ def dse_path(dev, card) -> list:
         f"(mean {np.mean(es):.1f}%), EDP up to {max(ed):.1f}% "
         f"(mean {np.mean(ed):.1f}%)  [paper: up to 36% / 67%]")
 
-    # times
-    flops_pair = ops_per_pair()
-    for gname, grid in grids.items():
-        cfg_u = operands(grid.fields)
-        n_u = cfg_u["rows"].shape[0]
-        in_bytes = (len(ops.CFG_COLUMNS) * n_u + len(ops.LAYER_FIELDS) * n_l) * 8
+    # times: CUDA events around a call, the traced device time of a launch,
+    # the host µs of a call; the bound on the operations of
+    # ref.count_term_sums_split (count_terms) and the plain mapping and
+    # terms a count row (count_layers)
+    per_pair = plain_ops_per_pair()
+    for gname, fields in grids.items():
+        o = operands(fields)
+        n_m, n_u = o[0]["rows"].shape[0], o[1]["rows"].shape[0]
+        lay_bytes = len(ops.LAYER_FIELDS) * n_l * 8
         for kname, (kern, plain) in kernels.items():
+            pp = per_pair[kname]
             if kname == "count_terms":
-                out_bytes = 14 * n_u * n_net * 8 + 2 * n_net * 8
-                flops = (flops_pair + 14) * n_u * n_l
+                n_bytes = (len(ops.MAP_COLUMNS) * n_m + 2 * n_u
+                           + 14 * n_u * n_net) * 8 + lay_bytes
+                flops = (pp["m"] * n_m + pp["u"] * n_u) * n_l
             else:
-                out_bytes = 14 * n_u * n_l * 8
-                flops = flops_pair * n_u * n_l
-            b_ms, b_by = bound(in_bytes + out_bytes, flops, FP64_FLOPS)
-            k_ms = cuda_ms(lambda: kern(cfg_u))
-            p_ms = cuda_ms(lambda: plain(cfg_u))
+                n_bytes = (len(ops.CFG_COLUMNS) * n_u
+                           + 14 * n_u * n_l) * 8 + lay_bytes
+                flops = pp["u"] * n_u * n_l
+            b_ms, b_by = bound(n_bytes, flops, FP64_FLOPS)
+            k_ms = cuda_ms(lambda: kern(o))
+            prof = profile_ms(lambda: kern(o), steps=50,
+                              match=(f"{kname}_kernel",))
+            dev_ms = prof["matched_per_launch_ms"][f"{kname}_kernel"]
+            call_dev_ms = prof["device_ms"]
+            enq_us, end_us = host_us(lambda: kern(o), calls=200)
+            p_ms = cuda_ms(lambda: plain(o))
             per_grid[kname][gname].update(
-                kernel_ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                bytes=in_bytes + out_bytes, fp64_ops=flops)
-            log(f"[6] {kname} at {gname}: kernel {k_ms:.4f} ms, plain "
-                f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) ({card})")
+                kernel_ms=k_ms, device_ms=dev_ms, call_device_ms=call_dev_ms,
+                host_us=enq_us, host_end_us=end_us, plain_ms=p_ms,
+                bound_ms=b_ms, bound_by=b_by, bytes=n_bytes, fp64_ops=flops,
+                ops_per_pair=pp)
+            log(f"[6] {kname} at {gname} ({n_m} mapping rows, {n_u} count "
+                f"rows): events {k_ms:.4f} ms a call, device {dev_ms:.4f} "
+                f"ms a launch ({call_dev_ms:.4f} ms of device work a call), "
+                f"host {enq_us:.1f} us a call ({end_us:.1f} to the end), "
+                f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; ops a "
+                f"pair: mapping {pp['m']:.0f}, count {pp['u']:.0f}) ({card})")
             torch.cuda.empty_cache()
 
-    # end to end: host wall time, and the kernel's device time on the
-    # operands of each chunk the call launches it on
+    # end to end: host wall time, a trace of one call, the host split
     e2e = {}
-    for gname, chunk in (("extended", None), ("mega", 9800)):
-        grid = grids[gname]
-        w_ms = wall_ms(lambda: em.evaluate_networks(grid, nets,
-                                                    chunk_size=chunk))
-        step = chunk or grid.n
-        k_ms = 0.0
-        for start in range(0, grid.n, step):
-            fc = {k: v[start:start + step] for k, v in grid.fields.items()}
-            c = operands(fc)
-            k_ms += cuda_ms(lambda: ops.count_term_sums(c, lay, seg))
+    for gname, grid, chunk in (("extended", ext, None),
+                               ("mega", mega, MEGA_CHUNK)):
+        def call():
+            return em.evaluate_networks(grid, nets, chunk_size=chunk)
+        w_ms = wall_ms(call)
+        prof = profile_ms(call, steps=3, match=("count_terms_kernel",))
+        k_ms = prof["matched_ms"]["count_terms_kernel"]
         e2e[gname] = dict(wall_ms=w_ms, kernel_ms=k_ms,
-                          kernel_share=k_ms / w_ms, chunk_size=chunk)
+                          kernel_share=k_ms / w_ms, chunk_size=chunk,
+                          device_ms=prof["device_ms"],
+                          busy_share=prof["busy_share"],
+                          kernel_launches=prof["kernel_launches"])
         log(f"[6] evaluate_networks at {gname} x 18 (chunk {chunk}): wall "
             f"{w_ms:.2f} ms, count_terms kernel {k_ms:.4f} ms = "
-            f"{100 * k_ms / w_ms:.2f}% of it ({card})")
+            f"{100 * k_ms / w_ms:.2f}% of it; device busy "
+            f"{prof['device_ms']:.3f} ms ({100 * prof['busy_share']:.1f}%), "
+            f"{prof['kernel_launches']:.0f} launches ({card})")
+    split = {}
+    for gname, fields in (("extended", grids["extended"]),
+                          ("mega_chunk", grids["mega_chunk"])):
+        split[gname] = evaluate_split(fields, nets, dev)
+        log(f"[6] host split of evaluate_networks at {gname} (ms, median of "
+            f"{REPS}, synchronised at each stage): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in split[gname].items())
+            + f" ({card})")
     log("dse " + json.dumps({"grids": per_grid, "launches": launches,
-                             "evaluate_networks": e2e}))
+                             "evaluate_networks": e2e, "host_split": split,
+                             "build": build}))
 
     rows = []
     for kname in kernels:
-        ext = per_grid[kname]["extended"]
+        ext_r = per_grid[kname]["extended"]
         rows.append(dict(
             name=kname, route="cuda", source=SOURCES[kname],
             replaces=REPLACES[kname], launches=launches[kname],
             max_abs_err=max(g["max_abs_err"] for g in per_grid[kname].values()),
             max_rel_err=max(g["max_rel_err"] for g in per_grid[kname].values()),
-            ms=ext["kernel_ms"], plain_ms=ext["plain_ms"],
-            bound_ms=ext["bound_ms"], bound_by=ext["bound_by"],
+            ms=ext_r["kernel_ms"], device_ms=ext_r["device_ms"],
+            host_us=ext_r["host_us"], plain_ms=ext_r["plain_ms"],
+            bound_ms=ext_r["bound_ms"], bound_by=ext_r["bound_by"],
             library_ms=None, shape="extended_grid x 18 networks"))
     return rows
 
@@ -1669,7 +1817,7 @@ def main() -> None:
 
     t0 = time.perf_counter()
     built = build_all()
-    rows = dse_path(dev, card)
+    rows = dse_path(dev, card, built)
     lm_rows, lm_launches = lm_path(dev, card, built)
     rms_row = lm_rows[1]
     ssm_rows, ssm_launches, rms_row["max_abs_err"] = ssm_path(

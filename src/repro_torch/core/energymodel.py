@@ -24,8 +24,10 @@ reference.  Everything from the heavy stage on runs in torch on
 float32's exact-integer range.  Two heavy-stage backends:
 
 * ``"cuda"``: the hand-written kernels of ``src/repro_torch/csrc``
-  (through :mod:`repro_torch.kernels.count_terms`), which recompute the
-  mapping per count-unique row and fuse the segment sum;
+  (through :mod:`repro_torch.kernels.count_terms`): the aggregate kernel
+  takes the same two-level operands, evaluates the mapping once per
+  mapping-unique row and fuses the segment sum; the per-layer kernel
+  evaluates it per count-unique row;
 * ``"torch"``: the same arithmetic as plain torch operations.
 
 With ``device=None`` the engine runs on ``"cuda"`` and raises when no card
@@ -465,14 +467,28 @@ _MAPPING_KEYS = ("n_c", "n_m", "n_oy", "w_psum", "ky_serial", "active_pes")
 
 
 def _dedup_rows(cfgs: Dict[str, np.ndarray], columns):
-    """→ (unique column dict [n_u], inverse index [n]) over ``columns``."""
+    """→ (unique column dict [n_u], inverse index [n]) over ``columns``:
+    ``np.unique(key, axis=0, return_inverse=True)``'s rows in its
+    lexicographic order, found with one ``np.lexsort`` (a tenth of
+    ``np.unique``'s host time on these grids)."""
     key = np.stack([cfgs[k] for k in columns], axis=1)
-    uniq, inv = np.unique(key, axis=0, return_inverse=True)
-    return dict(zip(columns, uniq.T.copy())), inv.reshape(-1).astype(np.int64)
+    order = np.lexsort(key.T[::-1])
+    ranked = key[order]
+    new = np.ones(len(ranked), dtype=bool)
+    new[1:] = (ranked[1:] != ranked[:-1]).any(axis=1)
+    inv = np.empty(len(ranked), dtype=np.int64)
+    inv[order] = np.cumsum(new) - 1
+    return dict(zip(columns, ranked[new].T.copy())), inv
 
 
 def _dedup_count_rows(cfgs: Dict[str, np.ndarray]):
-    return _dedup_rows(cfgs, _COUNT_COLUMNS)
+    """→ (count-unique column dict [n_u], inverse index [n]), the rows
+    grouped by mapping row: sorted on ``_MAPPING_COLUMNS``, then GB_psum,
+    so the rows that share a mapping are neighbours and the mapping dedup's
+    inverse never decreases (``count_terms_kernel`` finds each mapping
+    row's count rows by a search of it)."""
+    uniq, inv = _dedup_rows(cfgs, _MAPPING_COLUMNS + ("gb_psum_words",))
+    return {k: uniq[k] for k in _COUNT_COLUMNS}, inv
 
 
 def _count_terms(cfg_u: Dict[str, Any], lay: Dict[str, Any],
@@ -561,12 +577,12 @@ def _gather_combine_body(S, inv, coefs):
     return _combine_reduced(tuple(gathered), coefs)
 
 
-def _cuda_term_sums(segments, cfg_u, lay):
-    """The CUDA count-terms kernel: mapping + 14 terms + segment sums in
-    one launch on the count-unique rows (the mapping-level dedup is folded
-    into the kernel, which recomputes the mapping per row)."""
+def _cuda_term_sums(segments, cfg_m, cfg_u, lay, inv_m):
+    """The CUDA count-terms kernel on :func:`_term_sums_body`'s operands:
+    the mapping once per mapping-unique row, the 14 terms per count-unique
+    row and the segment sums in one launch."""
     from ..kernels.count_terms import ops
-    return ops.count_term_sums(cfg_u, lay, segments)
+    return ops.count_term_sums(segments, cfg_m, cfg_u, lay, inv_m)
 
 
 # ---------------------------------------------------------------------------
@@ -606,35 +622,50 @@ def _split_layers(arr, segments):
     return torch.stack(outs, dim=1)
 
 
+#: Where set, called with each stage's name as the stage ends (the host
+#: split of ``chip_smoke.py`` times the stages of a call); ``None``
+#: otherwise.
+_stage_hook = None
+
+
+def _stage(name: str) -> None:
+    if _stage_hook is not None:
+        _stage_hook(name)
+
+
 def _grid_kernel_body(segments, cfg_m, cfg_u, lay, inv_m, inv, coefs,
                       backend: str, per_layer: bool = False):
     """Heavy stage on ``backend``, then the coefficient combine.
     ``per_layer=True`` skips the segment reduction: the combine runs on
     the [*, L] terms and the outputs are re-split to [n, n_net, n_layer]."""
-    if per_layer:
-        if backend == "cuda":
-            S = _cuda_term_layers(cfg_u, lay)
-        else:
-            S = _term_layers_body(cfg_m, cfg_u, lay, inv_m)
-        e, t = _gather_combine_body(S, inv, coefs)
-        return _split_layers(e, segments), _split_layers(t, segments)
-    if backend == "cuda":
-        S = _cuda_term_sums(segments, cfg_u, lay)
+    if per_layer and backend == "cuda":
+        S = _cuda_term_layers(cfg_u, lay)
+    elif per_layer:
+        S = _term_layers_body(cfg_m, cfg_u, lay, inv_m)
+    elif backend == "cuda":
+        S = _cuda_term_sums(segments, cfg_m, cfg_u, lay, inv_m)
     else:
         S = _term_sums_body(segments, cfg_m, cfg_u, lay, inv_m)
-    return _gather_combine_body(S, inv, coefs)
+    _stage("heavy stage")
+    e, t = _gather_combine_body(S, inv, coefs)
+    _stage("gather-combine")
+    if per_layer:
+        return _split_layers(e, segments), _split_layers(t, segments)
+    return e, t
 
 
-def _prepare_fields(fields: Dict[str, np.ndarray], device: torch.device,
-                    backend: str):
-    """Grid columns → two-level-deduped kernel operands on ``device``.
-
-    The dedup runs on the host in numpy, as in the reference.  The CUDA
-    kernels recompute the mapping per count-unique row, so for them the
-    mapping-level operands are ``None`` and the second dedup is skipped."""
+def _prepare_fields(fields: Dict[str, np.ndarray], device: torch.device):
+    """Grid columns → two-level-deduped heavy-stage operands on ``device``,
+    the same for both backends, the count rows grouped by mapping row
+    (``inv_m`` non-decreasing).  The dedup runs on the host in numpy, as in
+    the reference."""
     cfgs = _cfg_struct_from_grid(fields)
     coefs = _coef_struct(cfgs)
-    cfg_u, inv = _dedup_count_rows(cfgs)            # counts level
+    _stage("config columns")
+    cfg_u, inv = _dedup_count_rows(cfgs)                  # counts level
+    _stage("count dedup")
+    cfg_m, inv_m = _dedup_rows(cfg_u, _MAPPING_COLUMNS)   # mapping level
+    _stage("mapping dedup")
 
     def put(a):
         return torch.as_tensor(a, dtype=_F64).to(device)
@@ -642,22 +673,19 @@ def _prepare_fields(fields: Dict[str, np.ndarray], device: torch.device,
     def put_idx(a):
         return torch.as_tensor(a, dtype=torch.int64).to(device)
 
-    cfg_m = inv_m = None
-    if backend != "cuda":
-        cfg_m, inv_m = _dedup_rows(cfg_u, _MAPPING_COLUMNS)  # mapping lvl
-        cfg_m = {k: put(v)[:, None] for k, v in cfg_m.items()}
-        inv_m = put_idx(inv_m)
+    cfg_m = {k: put(v)[:, None] for k, v in cfg_m.items()}
     cfg_u = {k: put(v)[:, None] for k, v in cfg_u.items()}
     coefs = {k: put(v) for k, v in coefs.items()}
-    return cfg_m, cfg_u, inv_m, put_idx(inv), coefs
+    inv_m, inv = put_idx(inv_m), put_idx(inv)
+    _stage("config host-to-device")
+    return cfg_m, cfg_u, inv_m, inv, coefs
 
 
 def _eval_fields(fields, lay, segments, backend: str, device: torch.device,
                  per_layer: bool = False):
     """Evaluate one batch of grid columns → (energy, latency) tensors on
     ``device``: [n, n_net], or [n, n_net, n_layer] in per-layer mode."""
-    cfg_m, cfg_u, inv_m, inv, coefs = _prepare_fields(fields, device,
-                                                      backend)
+    cfg_m, cfg_u, inv_m, inv, coefs = _prepare_fields(fields, device)
     return _grid_kernel_body(segments, cfg_m, cfg_u, lay, inv_m, inv, coefs,
                              backend, per_layer)
 
@@ -678,6 +706,7 @@ def _eval_chunked(fields, lay, segments, backend: str, device: torch.device,
         ec, tc = _eval_fields(fc, lay, segments, backend, device, per_layer)
         e[start:stop] = ec.cpu().numpy()
         t[start:stop] = tc.cpu().numpy()
+        _stage("device-to-host")
     return e, t
 
 
@@ -709,8 +738,10 @@ def evaluate_networks(grid: ConfigGrid,
     dev = resolve_device(device)
     backend = resolve_backend(backend, dev)
     lay_np, segments = _stack_networks(networks, absorb_pad=not per_layer)
+    _stage("layer stacking")
     lay = {k: torch.as_tensor(v, dtype=_F64).to(dev)[None, :]
            for k, v in lay_np.items()}
+    _stage("layer host-to-device")
     fields = grid.fields if isinstance(grid, ConfigGrid) else dict(grid)
     n = int(next(iter(fields.values())).shape[0])
 
@@ -722,6 +753,7 @@ def evaluate_networks(grid: ConfigGrid,
         e, t = _eval_fields(fields, lay, segments, backend, dev,
                             per_layer=per_layer)
         out = e.cpu().numpy(), t.cpu().numpy()
+        _stage("device-to-host")
     _LAST_BACKEND = backend
     return out
 

@@ -113,8 +113,8 @@ def test_missing_kernel_raises_instead_of_falling_back(monkeypatch):
     lay, segments = energymodel._stack_networks(
         {"AlexNet": topology.get_network("AlexNet")})
     lay = {k: torch.as_tensor(v)[None, :] for k, v in lay.items()}
-    _, cfg_u, _, _, _ = energymodel._prepare_fields(
-        grid.fields, torch.device("cpu"), "cuda")
+    cfg_m, cfg_u, inv_m, _, _ = energymodel._prepare_fields(
+        grid.fields, torch.device("cpu"))
 
     def not_built():
         raise RuntimeError("nvcc failed")
@@ -124,7 +124,7 @@ def test_missing_kernel_raises_instead_of_falling_back(monkeypatch):
     monkeypatch.setattr(ops, "_lib", not_built)
     ops.reset_launch_counts()
     with pytest.raises(RuntimeError, match="nvcc failed"):
-        ops.count_term_sums(cfg_u, lay, segments)
+        ops.count_term_sums(segments, cfg_m, cfg_u, lay, inv_m)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         ops.count_term_layers(cfg_u, lay)
     assert ops.launch_counts() == {"count_terms": 0, "count_layers": 0}
@@ -146,8 +146,12 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError, match="CPU or a CUDA device"):
         ops.count_term_layers(cfg_u, lay)
     mixed = dict(cfg_u, rows=torch.ones(3, 1, dtype=torch.float64))
+    inv_m = torch.zeros(3, dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="several devices"):
-        ops.count_term_sums(mixed, lay, ((0, 4),))
+        ops.count_term_sums(((0, 4),), mixed, cfg_u, lay, inv_m)
+    with pytest.raises(ValueError, match="several devices"):
+        ops.count_term_sums(((0, 4),), cfg_u, cfg_u, lay,
+                            torch.zeros(3, dtype=torch.int64))
 
 
 class _FakeNvcc:
