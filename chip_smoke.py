@@ -378,11 +378,12 @@ SPLIT_STAGES = ("layer stacking", "layer host-to-device", "config columns",
                 "heavy stage", "gather-combine", "device-to-host")
 
 
-def evaluate_split(fields, nets, dev, reps: int = REPS) -> dict:
-    """Host split of ``evaluate_networks(fields, nets)`` on the card: the
-    engine's own stage marks (``energymodel._stage_hook``), each preceded
-    by ``torch.cuda.synchronize()``, read on the host clock → {stage:
-    median ms over ``reps`` calls, "total": median ms a call}."""
+def stage_split(call, stages, reps: int = REPS) -> dict:
+    """Host split of ``call()`` on the card: the engine's own stage marks
+    (``energymodel._stage_hook``), each preceded by
+    ``torch.cuda.synchronize()``, read on the host clock and summed over
+    a call's repeats of a stage (a stream's chunks) → {stage: median ms
+    over ``reps`` calls, "total": median ms a call}."""
     import torch
     from repro_torch.core import energymodel as em
 
@@ -398,19 +399,26 @@ def evaluate_split(fields, nets, dev, reps: int = REPS) -> dict:
 
         em._stage_hook = mark
         try:
-            em.evaluate_networks(fields, nets, device=dev)
+            call()
         finally:
             em._stage_hook = None
-        if set(ms) != set(SPLIT_STAGES):
-            fail(f"evaluate_networks marked stages {sorted(ms)}, expected "
-                 f"{sorted(SPLIT_STAGES)}")
+        if set(ms) != set(stages):
+            fail(f"the engine marked stages {sorted(ms)}, expected "
+                 f"{sorted(stages)}")
         return ms
 
     once()
     runs = [once() for _ in range(reps)]
-    split = {k: statistics.median(r[k] for r in runs) for k in SPLIT_STAGES}
+    split = {k: statistics.median(r[k] for r in runs) for k in stages}
     split["total"] = statistics.median(sum(r.values()) for r in runs)
     return split
+
+
+def evaluate_split(fields, nets, dev, reps: int = REPS) -> dict:
+    """:func:`stage_split` of ``evaluate_networks(fields, nets)``."""
+    from repro_torch.core import energymodel as em
+    return stage_split(lambda: em.evaluate_networks(fields, nets, device=dev),
+                       SPLIT_STAGES, reps)
 
 
 def dse_path(dev, card, built) -> list:
@@ -556,6 +564,8 @@ def dse_path(dev, card, built) -> list:
         f"(mean {np.mean(es):.1f}%), EDP up to {max(ed):.1f}% "
         f"(mean {np.mean(ed):.1f}%)  [paper: up to 36% / 67%]")
 
+    stream_launches = dse_stream(dev, card, nets, chip)
+
     # times: CUDA events around a call, the traced device time of a launch,
     # the host µs of a call; the bound on the operations of
     # ref.count_term_sums_split (count_terms) and the plain mapping and
@@ -632,7 +642,8 @@ def dse_path(dev, card, built) -> list:
         ext_r = per_grid[kname]["extended"]
         rows.append(dict(
             name=kname, route="cuda", source=SOURCES[kname],
-            replaces=REPLACES[kname], launches=launches[kname],
+            replaces=REPLACES[kname],
+            launches=launches[kname] + stream_launches[kname],
             max_abs_err=max(g["max_abs_err"] for g in per_grid[kname].values()),
             max_rel_err=max(g["max_rel_err"] for g in per_grid[kname].values()),
             ms=ext_r["kernel_ms"], device_ms=ext_r["device_ms"],
@@ -640,6 +651,333 @@ def dse_path(dev, card, built) -> list:
             bound_ms=ext_r["bound_ms"], bound_by=ext_r["bound_by"],
             library_ms=None, shape="extended_grid x 18 networks"))
     return rows
+
+
+# ---------------------------------------------------------------------------
+# 2. The streamed DSE: stream_networks, stream_layer_topk, their resumable
+# fold state and the streamed §IV.A chip
+# ---------------------------------------------------------------------------
+
+#: Rows a chunk of the streamed sweeps (their default): 12 chunks of mega.
+STREAM_CHUNK = 4096
+STREAM_REPS = 5
+#: The chunk boundary at which a stream's state is exported and resumed.
+KILL_AT = 5
+#: The stages a streamed sweep marks (``energymodel._stage_hook``).
+STREAM_STAGES = ("layer stacking", "layer host-to-device", "stream setup",
+                 "config columns", "count dedup", "mapping dedup",
+                 "config host-to-device", "heavy stage", "gather-combine",
+                 "chunk fold", "stream finish")
+#: Fields of the two streamed results compared at rtol 1e-12 across
+#: backends, and those that must be equal.
+STREAM_VALUES = ("min_energy", "min_latency", "min_edp", "min_metric",
+                 "topk_metric", "layer_min_metric", "layer_energy",
+                 "layer_latency", "boundary_energy", "boundary_latency")
+STREAM_INDICES = ("argmin", "topk_idx", "layer_argmin", "boundary_idx")
+
+
+def _bits_differ(x, y) -> bool:
+    import numpy as np
+    if isinstance(x, dict) or isinstance(y, dict):
+        return (not isinstance(x, dict) or not isinstance(y, dict)
+                or list(x) != list(y)
+                or any(_bits_differ(x[k], y[k]) for k in x))
+    if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+        x, y = np.asarray(x), np.asarray(y)
+        return (x.dtype != y.dtype or x.shape != y.shape
+                or x.tobytes() != y.tobytes())
+    return x != y
+
+
+def differing(a, b) -> list:
+    """The fields of two streamed results whose bits differ."""
+    import dataclasses
+    return [f.name for f in dataclasses.fields(b)
+            if _bits_differ(getattr(a, f.name), getattr(b, f.name))]
+
+
+def agreement(a, b) -> tuple:
+    """(largest relative difference of the values, indices equal) of two
+    streamed results; +inf where the infinities or shapes differ."""
+    import numpy as np
+    rel = 0.0
+    for f in STREAM_VALUES:
+        x, y = getattr(a, f, None), getattr(b, f, None)
+        if x is None and y is None:
+            continue
+        pairs = zip(x.values(), y.values()) if isinstance(y, dict) \
+            else [(x, y)]
+        for u, w in pairs:
+            u, w = np.asarray(u), np.asarray(w)
+            fin = np.isfinite(w)
+            if u.shape != w.shape or not np.array_equal(np.isfinite(u), fin) \
+                    or (u[~fin] != w[~fin]).any():
+                return float("inf"), False
+            d = np.abs(u[fin] - w[fin]) / np.maximum(np.abs(w[fin]), 1e-300)
+            rel = max(rel, float(d.max(initial=0.0)))
+    same = not any(_bits_differ(getattr(a, f, None), getattr(b, f, None))
+                   for f in STREAM_INDICES)
+    return rel, same
+
+
+def dense_stream(e, t, sr):
+    """The reductions of ``stream_networks`` computed in one piece, in
+    numpy, from dense [n, n_net] outputs, with ``sr``'s parameters."""
+    import numpy as np
+    from repro_torch.core import energymodel as em
+    v = em._metric_of(sr.metric, e, t)
+    idx = np.broadcast_to(np.arange(v.shape[0])[:, None], v.shape)
+    order = np.lexsort((idx, v), axis=0)[:sr.topk_idx.shape[0]]
+    min_m = v.min(axis=0)
+    b_idx, b_e, b_t = {}, {}, {}
+    for j, nm in enumerate(sr.networks):
+        sel = np.flatnonzero(v[:, j] <= min_m[j] * (1.0 + sr.bound))
+        sel = sel[np.argsort(v[sel, j], kind="stable")]
+        b_idx[nm], b_e[nm], b_t[nm] = sel, e[sel, j], t[sel, j]
+    return em.StreamResult(
+        networks=sr.networks, n_cfg=v.shape[0], metric=sr.metric,
+        bound=sr.bound, min_energy=e.min(axis=0), min_latency=t.min(axis=0),
+        min_metric=min_m, argmin=v.argmin(axis=0),
+        topk_idx=np.take_along_axis(idx, order, axis=0),
+        topk_metric=np.take_along_axis(v, order, axis=0),
+        boundary_idx=b_idx, boundary_energy=b_e, boundary_latency=b_t,
+        device=sr.device, backend=sr.backend)
+
+
+def dense_layer_stream(e, t, lt, dev):
+    """The reductions of ``stream_layer_topk`` computed in one piece from
+    dense [n, n_net, n_layer] outputs, with ``lt``'s parameters: the
+    layer sums by torch on ``dev``, as the stream sums them, the rest in
+    numpy."""
+    import numpy as np
+    import torch
+    from repro_torch.core import energymodel as em
+    es, ts = (torch.as_tensor(a, device=dev).sum(dim=-1).cpu().numpy()
+              for a in (e, t))
+    v = em._metric_of(lt.metric, es, ts)
+    idx = np.broadcast_to(np.arange(v.shape[0])[:, None], v.shape)
+    order = np.lexsort((idx, v), axis=0)[:lt.topk_idx.shape[0]]
+    valid = np.arange(e.shape[2])[None, :] < lt.layer_counts[:, None]
+    vl = np.where(valid[None], em._metric_of(lt.metric, e, t), np.inf)
+    min_m = v.min(axis=0)
+    b_idx, b_e, b_t = {}, {}, {}
+    for j, nm in enumerate(lt.networks):
+        sel = np.flatnonzero(v[:, j] <= min_m[j] * (1.0 + lt.bound))
+        sel = sel[np.lexsort((sel, v[sel, j]))]
+        b_idx[nm], b_e[nm], b_t[nm] = sel, es[sel, j], ts[sel, j]
+    lmin = vl.min(axis=0)
+    return em.LayerTopK(
+        networks=lt.networks, n_cfg=v.shape[0], metric=lt.metric,
+        layer_counts=lt.layer_counts,
+        topk_idx=np.take_along_axis(idx, order, axis=0),
+        topk_metric=np.take_along_axis(v, order, axis=0),
+        layer_energy=np.take_along_axis(e, order[:, :, None], axis=0),
+        layer_latency=np.take_along_axis(t, order[:, :, None], axis=0),
+        min_energy=es.min(axis=0), min_latency=ts.min(axis=0),
+        min_edp=(es * ts).min(axis=0), min_metric=min_m,
+        argmin=v.argmin(axis=0), layer_min_metric=lmin,
+        layer_argmin=np.where(np.isfinite(lmin), vl.argmin(axis=0), -1),
+        bound=lt.bound, boundary_idx=b_idx, boundary_energy=b_e,
+        boundary_latency=b_t)
+
+
+def _bitwise(label, diffs) -> None:
+    if diffs:
+        fail(f"{label}: fields {diffs} differ in their bits")
+    log(f"[2] {label}: bit for bit")
+
+
+def _payload_keys(kind, n_net) -> list:
+    """The keys of an exported fold state (the reference's layout)."""
+    n_state = 6 if kind == "networks" else 11
+    return sorted([f"state_{i}" for i in range(n_state)] + ["meta"]
+                  + [f"cand{j}_{x}" for j in range(n_net)
+                     for x in ("idx", "e", "t")])
+
+
+def dse_stream(dev, card, nets, chip) -> dict:
+    """The streamed DSE on the card: both streams at mega x 18 and the
+    streamed §IV.A chip with the launch counts set to 0 just before and
+    read just after; held bit for bit against dense folds, a second chunk
+    size and a kill and resume, against the plain backend at rtol 1e-12;
+    timed.  Prints the ``dse_stream`` line → the path's launches."""
+    import numpy as np
+    import tempfile
+    from repro_torch.core import accelerator, dse, energymodel as em, hetero
+    from repro_torch.kernels.count_terms import ops
+
+    mega, ext = accelerator.mega_grid(), accelerator.extended_grid()
+    paper = accelerator.ConfigGrid.product()
+    n_chunks = -(-mega.n // STREAM_CHUNK)
+    states = {"networks": [], "layer_topk": []}
+
+    def stream(**kw):
+        return dse.stream_grid(nets, mega, bound=0.05, metric="edp",
+                               topk=16, **kw)
+
+    def layer_stream(**kw):
+        return dse.stream_layer_grid(nets, mega, bound=0.05, topk=8, **kw)
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    sr = stream(on_chunk=states["networks"].append)
+    after_sr = ops.launch_counts()
+    lt = layer_stream(on_chunk=states["layer_topk"].append)
+    after_lt = ops.launch_counts()
+    sr_paper = dse.stream_grid(nets, paper, chunk_size=50, bound=0.05)
+    schip = hetero.design_chip_streaming(sr_paper, paper, nets, max_cores=3)
+    sr_ext = dse.stream_grid(nets, ext, bound=0.05)
+    schip_ext = hetero.design_chip_streaming(sr_ext, ext, nets, max_cores=3)
+    launches = ops.launch_counts()
+    backend = em.last_backend()
+    log(f"[2] streamed DSE path in {time.perf_counter() - t0:.1f} s: "
+        f"backend {backend}, launches {launches} (after stream_networks "
+        f"{after_sr}, after stream_layer_topk {after_lt}; {n_chunks} "
+        f"chunks of {STREAM_CHUNK} a mega stream)")
+    if backend != "cuda" or sr.backend != "cuda":
+        fail(f"streamed path ran on backend {backend!r}")
+    if after_sr != {"count_terms": n_chunks, "count_layers": 0}:
+        fail(f"stream_networks launched {after_sr}, expected count_terms "
+             f"once a chunk ({n_chunks})")
+    if after_lt["count_layers"] != n_chunks or \
+            after_lt["count_terms"] != n_chunks:
+        fail(f"stream_layer_topk launched {after_lt}, expected "
+             f"count_layers once a chunk ({n_chunks})")
+
+    n_net = len(nets)
+    n_layer = int(em.network_layer_counts(nets).max())
+    shapes = ((sr.topk_idx, (16, n_net)), (sr.min_metric, (n_net,)),
+              (lt.layer_energy, (8, n_net, n_layer)),
+              (lt.layer_min_metric, (n_net, n_layer)))
+    if any(a.shape != shape for a, shape in shapes):
+        fail(f"streamed shapes {[a.shape for a, _ in shapes]}")
+    for r in (sr, lt):
+        finite = all(np.isfinite(a).all() and (a > 0).all()
+                     for a in (r.min_energy, r.min_latency, r.min_metric,
+                               r.topk_metric))
+        first = all(r.boundary_idx[nm][0] == r.argmin[j]
+                    for j, nm in enumerate(r.networks))
+        if not (finite and first and ((r.argmin >= 0)
+                                      & (r.argmin < mega.n)).all()):
+            fail(f"{type(r).__name__}: non-finite minima or a boundary set "
+                 f"that does not start at the argmin")
+    if not (np.isfinite(lt.layer_energy).all()
+            and np.isfinite(lt.layer_latency).all()):
+        fail("stream_layer_topk: non-finite top-k layer rows")
+
+    # bit for bit: dense folds, a second chunk size, a kill and resume
+    e_d, t_d = em.evaluate_networks(mega, nets, chunk_size=MEGA_CHUNK)
+    _bitwise("stream_networks at mega x 18 against a fold of the dense "
+          "evaluate_networks", differing(sr, dense_stream(e_d, t_d, sr)))
+    _bitwise(f"stream_networks at chunk {MEGA_CHUNK} against chunk "
+          f"{STREAM_CHUNK}", differing(stream(chunk_size=MEGA_CHUNK), sr))
+    _bitwise(f"stream_layer_topk at chunk {MEGA_CHUNK} against chunk "
+          f"{STREAM_CHUNK}",
+          differing(layer_stream(chunk_size=MEGA_CHUNK), lt))
+    lt_ext = dse.stream_layer_grid(nets, ext, bound=0.05, topk=8)
+    e_pl, t_pl = em.evaluate_networks(ext, nets, per_layer=True)
+    _bitwise("stream_layer_topk at extended x 18 against a fold of the dense "
+          "per-layer evaluate_networks",
+          differing(lt_ext, dense_layer_stream(e_pl, t_pl, lt_ext, dev)))
+    del e_d, t_d, e_pl, t_pl
+    resume = {}
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        for kind, full, run in (("networks", sr, stream),
+                                ("layer_topk", lt, layer_stream)):
+            st = states[kind][KILL_AT - 1]
+            payload = st.export_state()
+            meta = json.loads(payload["meta"])
+            if st.next_chunk != KILL_AT or \
+                    sorted(payload) != _payload_keys(kind, n_net) or \
+                    meta["n_chunks"] != n_chunks or \
+                    meta["chunk_size"] != STREAM_CHUNK:
+                fail(f"{kind} state at chunk {KILL_AT}: keys "
+                     f"{sorted(payload)}, meta {meta}")
+            path = Path(tmp) / f"{kind}.npz"
+            st.save(path)
+            _bitwise(f"{kind} stream resumed from chunk {KILL_AT} (npz "
+                  f"{path.stat().st_size} bytes)",
+                  differing(run(resume_from=em.StreamFoldState.load(path)),
+                            full))
+            resume[kind] = dict(chunk=KILL_AT,
+                                npz_bytes=path.stat().st_size)
+
+    # the kernels against the plain backend on the card
+    backends = {}
+    for kind, got, want in (
+            ("stream_networks", sr,
+             lambda: em.stream_networks(mega, nets, device=dev,
+                                        backend="torch")),
+            ("stream_layer_topk", lt,
+             lambda: em.stream_layer_topk(mega, nets, device=dev,
+                                          backend="torch", bound=0.05))):
+        rel, same = agreement(got, want())
+        backends[kind] = dict(max_rel_err=rel, indices_equal=same)
+        log(f"[2] {kind} at mega x 18, cuda against torch on the card: "
+            f"max_rel_err {rel:.3e}, indices equal {same}")
+        if not (rel <= RTOL and same):
+            fail(f"{kind}: the kernels' stream disagrees with the plain one")
+
+    # the streamed §IV.A chip: the dense cover, and the same on the CPU
+    shape = (len(accelerator.ARRAY_SIZES), len(accelerator.GB_SIZES_KB),
+             len(accelerator.GB_SIZES_KB))
+    if (schip.core_cells(shape), schip.assignment) != \
+            (chip.core_types, chip.assignment):
+        fail(f"streamed chip {schip.core_cells(shape)} {schip.assignment} "
+             f"differs from design_chip's {chip.core_types} "
+             f"{chip.assignment}")
+    cpu = hetero.design_chip_streaming(
+        dse.stream_grid(nets, ext, device="cpu", bound=0.05), ext, nets,
+        max_cores=3)
+    if (cpu.core_types, cpu.assignment, cpu.candidate_sets) != \
+            (schip_ext.core_types, schip_ext.assignment,
+             schip_ext.candidate_sets):
+        fail(f"streamed chip at extended differs: card "
+             f"{schip_ext.core_types} {schip_ext.assignment}, CPU "
+             f"{cpu.core_types} {cpu.assignment}")
+    labels = [schip_ext.core_label(i, ext)
+              for i in range(len(schip_ext.core_types))]
+    log(f"[2] streamed §IV.A chip: the dense cover on the paper grid "
+        f"{schip.core_cells(shape)}; at extended {labels}, the same on "
+        f"the card and the CPU")
+
+    # times: wall (median of STREAM_REPS), a trace, the host split
+    times = {}
+    for kind, call, kern, stages in (
+            ("stream_networks", stream, "count_terms_kernel",
+             STREAM_STAGES),
+            ("stream_layer_topk", layer_stream, "count_layers_kernel",
+             STREAM_STAGES + ("layer split",))):
+        w_ms = wall_ms(call, reps=STREAM_REPS)
+        prof = profile_ms(call, steps=2, match=(kern,))
+        split = stage_split(call, stages, reps=3)
+        times[kind] = dict(
+            wall_ms=w_ms, device_ms=prof["device_ms"],
+            busy_share=prof["busy_share"],
+            launches_per_chunk=prof["kernel_launches"] / n_chunks,
+            kernel_ms=prof["matched_ms"][kern],
+            heavy_ms_per_chunk=split["heavy stage"] / n_chunks,
+            fold_ms_per_chunk=split["chunk fold"] / n_chunks,
+            split_ms=split, top_host=prof["top_host"])
+        log(f"[6] {kind} at mega x 18 ({n_chunks} chunks): wall {w_ms:.2f} "
+            f"ms (median of {STREAM_REPS}); device busy "
+            f"{prof['device_ms']:.3f} ms ({100 * prof['busy_share']:.1f}%), "
+            f"{prof['kernel_launches'] / n_chunks:.1f} launches a chunk, "
+            f"{kern} {prof['matched_ms'][kern]:.4f} ms a call; a chunk's "
+            f"fold {split['chunk fold'] / n_chunks:.3f} ms against its "
+            f"heavy stage {split['heavy stage'] / n_chunks:.3f} ms on the "
+            f"host clock ({card})")
+        log(f"[6] host split of {kind} (ms over the call, synchronised at "
+            f"each stage): " + ", ".join(f"{k} {v:.3f}"
+                                         for k, v in split.items())
+            + f" ({card})")
+    log("dse_stream " + json.dumps({
+        "card": card, "grid": "mega_grid x 18", "chunks": n_chunks,
+        "chunk_size": STREAM_CHUNK, "launches": launches,
+        "cuda_vs_torch": backends, "resume": resume, "times": times}))
+    return launches
 
 
 # ---------------------------------------------------------------------------

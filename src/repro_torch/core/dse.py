@@ -1,11 +1,12 @@
 """Design-space exploration (§III–§IV): sweeps, and the statistics of
 Tables 1–4 (equations (2)–(5)).
 
-The PyTorch port of ``repro.core.dse`` without the streaming wrappers.
-The sweeps evaluate every network against the whole grid in one call to
+The PyTorch port of ``repro.core.dse``.  The sweeps evaluate every
+network against the whole grid in one call to
 :func:`repro_torch.core.energymodel.evaluate_networks` on ``device`` (the
-card by default); the statistics are numpy on the host, as in the
-reference, over the arrays the engine returns.
+card by default), the streaming wrappers through its streamed reductions;
+the statistics are numpy on the host, as in the reference, over the
+arrays the engine returns.
 """
 
 from __future__ import annotations
@@ -95,6 +96,33 @@ def layer_metrics(networks: Mapping[str, Sequence[Layer]],
         grid = _paper_grid(ARRAY_SIZES, GB_SIZES_KB, GB_SIZES_KB, None)
     return energymodel.evaluate_networks(grid, networks, per_layer=True,
                                          **kwargs)
+
+
+def stream_layer_grid(networks: Mapping[str, Sequence[Layer]],
+                      grid: ConfigGrid,
+                      **kwargs) -> "energymodel.LayerTopK":
+    """Streaming PER-LAYER sweep of an arbitrary ConfigGrid: one chunked
+    pass folds every chunk into running reductions on the device —
+    per-network top-k configs with their ``[n_layer]`` energy/latency
+    rows, aggregate and per-(network, layer) minima, and (with ``bound=``)
+    the ≤bound boundary candidate sets — without materialising the
+    ``[n_cfg, n_net, n_layer]`` tensors.  Keyword arguments forward to
+    :func:`energymodel.stream_layer_topk` (``device``, ``backend``,
+    ``topk``, ``bound``, ``chunk_size``, ``metric``, ...)."""
+    return energymodel.stream_layer_topk(grid, networks, **kwargs)
+
+
+def stream_grid(networks: Mapping[str, Sequence[Layer]],
+                grid: ConfigGrid,
+                **kwargs) -> "energymodel.StreamResult":
+    """Streaming sweep of an arbitrary ConfigGrid: chunked evaluation with
+    running reductions on the device (per-network minima, top-k cells, and
+    the ≤bound boundary sets that
+    :func:`repro_torch.core.hetero.design_chip_streaming` consumes) — the
+    full [n_cfg, n_net] matrices are never materialised.  Keyword
+    arguments forward to :func:`energymodel.stream_networks` (``device``,
+    ``backend``, ``chunk_size``, ``bound``, ``metric``, ``topk``, ...)."""
+    return energymodel.stream_networks(grid, networks, **kwargs)
 
 
 def sweep_network(layers: Sequence[Layer], network: str = "net",

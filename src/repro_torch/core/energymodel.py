@@ -40,11 +40,21 @@ reports what ran.
 The reference pads the unique axes and every chunk to bucket multiples so
 that jitted shapes repeat; eager torch and the CUDA kernels take any
 shape, so the port does not.
+
+Streaming (``stream_networks``, ``stream_layer_topk``): the grid in
+chunks through the same heavy stage, each chunk folded into running
+reductions on ``device`` (minima, top-k, boundary masks) in torch for both
+backends, with the reference's resumable fold state, seams and
+(value, flat index) tie-break, so results, hashes and exported states
+agree with the reference's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
+import os
 from typing import Any, Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
@@ -650,7 +660,8 @@ def _grid_kernel_body(segments, cfg_m, cfg_u, lay, inv_m, inv, coefs,
     e, t = _gather_combine_body(S, inv, coefs)
     _stage("gather-combine")
     if per_layer:
-        return _split_layers(e, segments), _split_layers(t, segments)
+        e, t = _split_layers(e, segments), _split_layers(t, segments)
+        _stage("layer split")
     return e, t
 
 
@@ -679,6 +690,17 @@ def _prepare_fields(fields: Dict[str, np.ndarray], device: torch.device):
     inv_m, inv = put_idx(inv_m), put_idx(inv)
     _stage("config host-to-device")
     return cfg_m, cfg_u, inv_m, inv, coefs
+
+
+def _device_layers(networks, device: torch.device, absorb_pad: bool):
+    """:func:`_stack_networks` with the layer columns moved to ``device``
+    as ``[1, L]`` float64 tensors → ``(lay, segments)``."""
+    lay_np, segments = _stack_networks(networks, absorb_pad=absorb_pad)
+    _stage("layer stacking")
+    lay = {k: torch.as_tensor(v, dtype=_F64).to(device)[None, :]
+           for k, v in lay_np.items()}
+    _stage("layer host-to-device")
+    return lay, segments
 
 
 def _eval_fields(fields, lay, segments, backend: str, device: torch.device,
@@ -737,11 +759,7 @@ def evaluate_networks(grid: ConfigGrid,
     global _LAST_BACKEND
     dev = resolve_device(device)
     backend = resolve_backend(backend, dev)
-    lay_np, segments = _stack_networks(networks, absorb_pad=not per_layer)
-    _stage("layer stacking")
-    lay = {k: torch.as_tensor(v, dtype=_F64).to(dev)[None, :]
-           for k, v in lay_np.items()}
-    _stage("layer host-to-device")
+    lay, segments = _device_layers(networks, dev, absorb_pad=not per_layer)
     fields = grid.fields if isinstance(grid, ConfigGrid) else dict(grid)
     n = int(next(iter(fields.values())).shape[0])
 
@@ -767,3 +785,774 @@ def simulate_grid(configs: Sequence[AcceleratorConfig] | ConfigGrid,
     e, t = evaluate_networks(grid, {"net": layers}, device=device,
                              backend=backend)
     return e[:, 0], t[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# Streaming evaluation: the grid in chunks, each folded into running
+# reductions on the device.
+#
+# The paper's §III/§IV consumers want per-network minima, the ≤bound
+# boundary sets and a few near-optimal cells, not the [n_cfg, n_net]
+# matrices.  Both streams evaluate one chunk at a time through
+# :func:`_eval_fields` and fold it, as torch operations, where the heavy
+# stage ran; only the boundary mask's hits, their energy and latency, and
+# the finished state cross to the host.  Every reduction ranks by (value,
+# flat grid index), so the fold depends neither on the chunk size nor on
+# where a run was cut and resumed.  Unlike the reference, the last chunk
+# is not padded: its padded rows only ever entered the fold as +inf
+# behind the -1 sentinels, so leaving them out changes no result.
+#
+# Crash safety.  Everything the fold carries (the state tuple and the
+# boundary candidates) is exported after every chunk; a content hash over
+# (grid columns, layer structs, metric, bound, topk, chunk schedule) is
+# stamped into it, and resuming against other inputs is refused.  Both
+# the hash and the export are the reference's, so a state crosses between
+# the packages.
+# ---------------------------------------------------------------------------
+
+
+def _metric_of(metric: str, e, t):
+    if metric == "edp":
+        return e * t
+    return e if metric == "energy" else t
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamResult:
+    """Running reductions of a streamed sweep (flat grid indices), as
+    numpy arrays; ``device`` and ``backend`` say where the heavy stage and
+    the fold ran."""
+
+    networks: Tuple[str, ...]
+    n_cfg: int
+    metric: str
+    bound: float
+    min_energy: np.ndarray          # [n_net]
+    min_latency: np.ndarray         # [n_net]
+    min_metric: np.ndarray          # [n_net]
+    argmin: np.ndarray              # [n_net] flat grid index of metric min
+    topk_idx: np.ndarray            # [k, n_net] flat indices, best first
+    topk_metric: np.ndarray         # [k, n_net]
+    boundary_idx: Dict[str, np.ndarray]      # per net, sorted by metric
+    boundary_energy: Dict[str, np.ndarray]
+    boundary_latency: Dict[str, np.ndarray]
+    device: str
+    backend: str
+
+    def boundary_metric(self, name: str) -> np.ndarray:
+        return _metric_of(self.metric, self.boundary_energy[name],
+                          self.boundary_latency[name])
+
+
+class StreamStateError(ValueError):
+    """Resume state incompatible with the requested stream: wrong stream
+    kind, inputs changed since the state was exported, or a truncated /
+    corrupt payload."""
+
+
+class ChunkCorruption(RuntimeError):
+    """Non-finite energy/latency detected in a streamed chunk.
+
+    Raised by the per-chunk NaN/inf guard BEFORE the chunk is folded, so
+    the running state is never poisoned; carries chunk provenance
+    (``chunk``, grid row range ``start:stop``, affected ``networks``)."""
+
+    def __init__(self, msg: str, *, chunk: int, start: int, stop: int,
+                 networks: Sequence[str] = ()):
+        super().__init__(msg)
+        self.chunk = int(chunk)
+        self.start = int(start)
+        self.stop = int(stop)
+        self.networks = tuple(networks)
+
+
+#: Fault-injection seam: when set, called as ``hook(chunk_index, e, t)`` on
+#: every chunk's raw evaluation (device tensors) right before it is folded
+#: (both streams) and must return the possibly-modified ``(e, t)``; ``None``
+#: otherwise.
+_CHUNK_HOOK = None
+
+
+def _apply_chunk_hook(ci, e, t):
+    if _CHUNK_HOOK is None:
+        return e, t
+    return _CHUNK_HOOK(ci, e, t)
+
+
+def _guard_chunk(ci, start, stop, es, ts, names):
+    """NaN/inf guard with chunk provenance over the chunk's [rows, n_net]
+    aggregates: checked on their device, copied to the host only to name
+    the networks of a failure."""
+    bad = ~(torch.isfinite(es) & torch.isfinite(ts))
+    if not bool(bad.any()):
+        return
+    nets = [names[j] for j in torch.nonzero(bad.any(dim=0)).flatten().tolist()]
+    raise ChunkCorruption(
+        f"non-finite energy/latency in streamed chunk {ci} (grid rows "
+        f"{start}:{stop}, networks {nets}); the fold state was NOT "
+        f"updated with this chunk — retry the chunk or resume from the "
+        f"last exported state", chunk=ci, start=start, stop=stop,
+        networks=nets)
+
+
+def stream_input_hash(grid: ConfigGrid | Mapping[str, Any],
+                      networks: Mapping[str, Sequence[Layer]],
+                      *, kind: str, metric: str, bound: float | None,
+                      topk: int, chunk: int) -> str:
+    """Content hash of everything that determines a streamed fold: the
+    grid columns and each network's layer struct as float64 bytes, and the
+    reduction parameters with the effective chunk — the reference's
+    digest for the same inputs.  Equal hashes fold identical chunk
+    sequences, the precondition for a bit-exact resume."""
+    h = hashlib.sha256()
+    h.update(repr((kind, metric,
+                   None if bound is None else float(bound),
+                   int(topk), int(chunk))).encode())
+    fields = grid.fields if isinstance(grid, ConfigGrid) else dict(grid)
+    for k in sorted(fields):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(
+            np.asarray(fields[k], dtype=np.float64)).tobytes())
+    for nm in networks:
+        h.update(nm.encode())
+        struct = rs_mapping.layer_struct(
+            [l for l in networks[nm] if l.kind != "input"], device="cpu")
+        for sk in sorted(struct):
+            h.update(sk.encode())
+            h.update(struct[sk].numpy().tobytes())      # float64
+    return h.hexdigest()
+
+
+def _to_host(a) -> np.ndarray:
+    """A fold-state array as a numpy copy (device tensors copied over)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy().copy()
+    return np.array(np.asarray(a), copy=True)
+
+
+@dataclasses.dataclass
+class StreamFoldState:
+    """Serializable fold state of a streamed sweep after ``next_chunk``
+    chunks.
+
+    Emitted through the ``on_chunk=`` callback of :func:`stream_networks`
+    / :func:`stream_layer_topk` after every folded chunk and accepted back
+    through ``resume_from=``; ``state`` may hold device tensors.
+    :meth:`export_state` flattens it to the reference's numpy payload
+    (device tensors copied to the host) and :meth:`save` / :meth:`load`
+    persist that export crash-safely (a temp file, then an atomic
+    rename)."""
+
+    kind: str                       # "networks" | "layer_topk"
+    input_hash: str
+    next_chunk: int                 # chunks [0, next_chunk) are folded
+    n_chunks: int
+    chunk_size: int                 # effective chunk row count
+    n_cfg: int
+    networks: Tuple[str, ...]
+    metric: str
+    bound: float | None
+    topk: int
+    state: tuple                    # reduction state (tensors or arrays)
+    cand: Dict[str, list]           # boundary triples (idx, e, t) per net
+
+    @property
+    def complete(self) -> bool:
+        return self.next_chunk >= self.n_chunks
+
+    def export_state(self) -> Dict[str, Any]:
+        """Flatten to a ``{name: np.ndarray}`` dict (+ a ``meta`` JSON
+        string) — npz-serializable, no pickling."""
+        out: Dict[str, Any] = {}
+        for i, s in enumerate(self.state):
+            out[f"state_{i}"] = _to_host(s)
+        for j, nm in enumerate(self.networks):
+            entries = self.cand.get(nm, [])
+            if entries:
+                out[f"cand{j}_idx"] = np.concatenate(
+                    [np.asarray(c[0], np.int64) for c in entries])
+                out[f"cand{j}_e"] = np.concatenate(
+                    [np.asarray(c[1], np.float64) for c in entries])
+                out[f"cand{j}_t"] = np.concatenate(
+                    [np.asarray(c[2], np.float64) for c in entries])
+            else:
+                out[f"cand{j}_idx"] = np.zeros(0, np.int64)
+                out[f"cand{j}_e"] = np.zeros(0)
+                out[f"cand{j}_t"] = np.zeros(0)
+        out["meta"] = json.dumps(dict(
+            kind=self.kind, input_hash=self.input_hash,
+            next_chunk=int(self.next_chunk), n_chunks=int(self.n_chunks),
+            chunk_size=int(self.chunk_size), n_cfg=int(self.n_cfg),
+            networks=list(self.networks), metric=self.metric,
+            bound=self.bound, topk=int(self.topk),
+            n_state=len(self.state)))
+        return out
+
+    @classmethod
+    def from_export(cls, d: Mapping[str, Any]) -> "StreamFoldState":
+        try:
+            meta_raw = d["meta"]
+            if not isinstance(meta_raw, str):
+                meta_raw = str(np.asarray(meta_raw)[()])
+            meta = json.loads(meta_raw)
+            state = tuple(np.asarray(d[f"state_{i}"])
+                          for i in range(int(meta["n_state"])))
+            cand: Dict[str, list] = {}
+            for j, nm in enumerate(meta["networks"]):
+                idx = np.asarray(d[f"cand{j}_idx"], np.int64)
+                cand[nm] = ([(idx, np.asarray(d[f"cand{j}_e"]),
+                              np.asarray(d[f"cand{j}_t"]))]
+                            if idx.size else [])
+        except (KeyError, ValueError, TypeError) as e:
+            raise StreamStateError(
+                f"truncated or corrupt stream fold-state payload: {e}")
+        return cls(kind=meta["kind"], input_hash=meta["input_hash"],
+                   next_chunk=int(meta["next_chunk"]),
+                   n_chunks=int(meta["n_chunks"]),
+                   chunk_size=int(meta["chunk_size"]),
+                   n_cfg=int(meta["n_cfg"]),
+                   networks=tuple(meta["networks"]), metric=meta["metric"],
+                   bound=meta["bound"], topk=int(meta["topk"]),
+                   state=state, cand=cand)
+
+    def save(self, path) -> None:
+        """Crash-safe persist: write the npz to ``path + '.tmp'``, fsync,
+        then atomically rename over ``path``."""
+        d = self.export_state()
+        tmp = str(path) + ".tmp"
+        with open(tmp, "wb") as f:
+            np.savez(f, **d)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, str(path))
+
+    @classmethod
+    def load(cls, path) -> "StreamFoldState":
+        with np.load(str(path), allow_pickle=False) as z:
+            d = {k: z[k] for k in z.files}
+        return cls.from_export(d)
+
+
+def _resume_fold(resume_from, *, kind, ihash, names, device):
+    """Validate a resume payload against the live call → (state on
+    ``device``, boundary candidates, first chunk to fold)."""
+    fs = (resume_from if isinstance(resume_from, StreamFoldState)
+          else StreamFoldState.from_export(resume_from))
+    if fs.kind != kind:
+        raise StreamStateError(
+            f"resume_from carries a {fs.kind!r} fold state but this is a "
+            f"{kind!r} stream")
+    if fs.input_hash != ihash:
+        raise StreamStateError(
+            "resume_from was exported from different inputs — the (grid, "
+            "networks, metric, bound, topk, chunk schedule) content hash "
+            "does not match; refusing to resume because the folded result "
+            "would not be bit-identical")
+    state = tuple(s.to(device) if isinstance(s, torch.Tensor)
+                  else torch.as_tensor(np.asarray(s)).to(device)
+                  for s in fs.state)
+    cand = {nm: list(fs.cand.get(nm, [])) for nm in names}
+    return state, cand, int(fs.next_chunk)
+
+
+def _lex_order(all_v, all_i, k: int):
+    """The first ``k`` positions along dim 0 in (value, index) order —
+    numpy's ``lexsort((all_i, all_v), axis=0)[:k]``, which torch lacks: a
+    stable sort on the index, then a stable sort on the value.  The +inf
+    sentinel rows carry index -1, so they sort ahead of any real +inf."""
+    by_i = torch.sort(all_i, dim=0, stable=True).indices
+    by_v = torch.sort(torch.gather(all_v, 0, by_i), dim=0,
+                      stable=True).indices
+    return torch.gather(by_i, 0, by_v)[:k]
+
+
+def _chunk_index(e, base: int):
+    """Flat grid indices of a chunk's rows, broadcast to [rows, n_net]."""
+    rows = torch.arange(base, base + e.shape[0], device=e.device)
+    return rows[:, None].expand(e.shape[0], e.shape[1])
+
+
+def _stream_reduce_body(metric, topk, e, t, base, bound, state):
+    """Fold one [rows, n_net] chunk (grid rows ``base`` on) into the
+    running state → ``(state, mask)``.  Ties go to the lower flat index
+    (``argmin`` returns the first minimum, the top-k ranks by (value,
+    index)); the boundary mask compares against the *updated* running
+    minimum, a superset of the final boundary set."""
+    min_e, min_t, min_m, argm, top_v, top_i = state
+    v = _metric_of(metric, e, t)
+    min_e = torch.minimum(min_e, e.amin(dim=0))
+    min_t = torch.minimum(min_t, t.amin(dim=0))
+    cmin = v.amin(dim=0)
+    better = cmin < min_m
+    min_m = torch.where(better, cmin, min_m)
+    argm = torch.where(better, base + v.argmin(dim=0), argm)
+    all_v = torch.cat([top_v, v])
+    all_i = torch.cat([top_i, _chunk_index(v, base)])
+    order = _lex_order(all_v, all_i, topk)
+    top_v = torch.gather(all_v, 0, order)
+    top_i = torch.gather(all_i, 0, order)
+    mask = v <= min_m[None, :] * (1.0 + bound)
+    return (min_e, min_t, min_m, argm, top_v, top_i), mask
+
+
+def _collect_hits(cand, names, mask, es, ts, start: int) -> None:
+    """Append each network's boundary hits of a chunk — (flat indices,
+    energies, latencies) — to ``cand``; only the hits cross to the host."""
+    r, c = torch.nonzero(mask, as_tuple=True)
+    if r.numel() == 0:
+        return
+    e_h, t_h = es[r, c].cpu().numpy(), ts[r, c].cpu().numpy()
+    r, c = r.cpu().numpy(), c.cpu().numpy()
+    for j, nm in enumerate(names):
+        sel = c == j
+        if sel.any():
+            cand[nm].append((start + r[sel], e_h[sel], t_h[sel]))
+
+
+def _pruned_candidates(entries, metric, min_m: float, bound: float):
+    """One network's boundary candidates pruned to the final minimum →
+    (indices, energies, latencies, metric values), in fold order."""
+    if entries:
+        idx = np.concatenate([c[0] for c in entries])
+        ee = np.concatenate([c[1] for c in entries])
+        tt = np.concatenate([c[2] for c in entries])
+    else:
+        idx, ee, tt = (np.zeros(0, np.int64),) + (np.zeros(0),) * 2
+    v = _metric_of(metric, ee, tt)
+    keep = v <= min_m * (1.0 + bound)
+    return idx[keep], ee[keep], tt[keep], v[keep]
+
+
+def _plain_ref_eval(lay, segments, per_layer: bool):
+    """A verifier's shadow evaluator: the plain torch path on the CPU in
+    float64, a chunk's columns → numpy (energy, latency)."""
+    cpu = torch.device("cpu")
+    lay_cpu = {k: v.to(cpu) for k, v in lay.items()}
+
+    def ref_eval(fc):
+        e, t = _eval_fields(fc, lay_cpu, segments, "torch", cpu, per_layer)
+        return e.numpy(), t.numpy()
+    return ref_eval
+
+
+def _full(shape, value, device, dtype=_F64):
+    return torch.full(shape, value, dtype=dtype, device=device)
+
+
+def _chunk_rows(fields, n: int, chunk: int, done: int):
+    """(chunk index, start, stop, the chunk's columns) from chunk
+    ``done`` on, unpadded."""
+    for ci in range(done, -(-n // chunk)):
+        start = ci * chunk
+        stop = min(start + chunk, n)
+        yield ci, start, stop, {k: v[start:stop] for k, v in fields.items()}
+
+
+def stream_networks(grid: ConfigGrid,
+                    networks: Mapping[str, Sequence[Layer]],
+                    *,
+                    device=None,
+                    backend: str | None = None,
+                    chunk_size: int = 4096,
+                    bound: float = 0.05,
+                    metric: str = "edp",
+                    topk: int = 16,
+                    resume_from: "StreamFoldState | Mapping | None" = None,
+                    on_chunk=None,
+                    nan_guard: bool = True,
+                    verify=None) -> StreamResult:
+    """Chunked streaming sweep with running reductions on the device.
+
+    Never materialises the full ``[n_cfg, n_net]`` matrices: each chunk
+    of ``chunk_size`` grid rows is evaluated like :func:`evaluate_networks`
+    (``device``, ``backend``: the same defaults) and folded, on ``device``,
+    into per-network running minima, top-``topk`` cells and ≤``bound``
+    boundary candidate sets of ``metric`` (``"edp" | "energy" |
+    "latency"``).  Equivalent to reducing :func:`evaluate_networks`'s
+    output, at bounded memory.
+
+    Crash safety: ``on_chunk`` receives a :class:`StreamFoldState` after
+    every folded chunk; pass one back (or its export, the reference's
+    too) as ``resume_from=`` to restart from the first unfolded chunk —
+    the result is bit-identical to an uninterrupted run, and a state
+    exported from other inputs raises :class:`StreamStateError`.
+    ``nan_guard`` checks every chunk for NaN/inf before the fold commits
+    (:class:`ChunkCorruption`).  ``verify=`` takes a verifier duck-typed
+    like the reference's ``StreamVerifier`` (``bind`` / ``check_resume``
+    / ``check_chunk`` / ``check_fold``), each called before the fold
+    commits; its ``ref_eval`` is the plain torch path on the CPU.
+    """
+    global _LAST_BACKEND
+    dev = resolve_device(device)
+    backend = resolve_backend(backend, dev)
+    names = tuple(networks)
+    n_net = len(names)
+    lay, segments = _device_layers(networks, dev, absorb_pad=True)
+    fields = grid.fields if isinstance(grid, ConfigGrid) else dict(grid)
+    n = int(next(iter(fields.values())).shape[0])
+    chunk = max(1, min(chunk_size, n))
+    n_chunks = -(-n // chunk)
+    ihash = stream_input_hash(fields, networks, kind="networks",
+                              metric=metric, bound=bound, topk=topk,
+                              chunk=chunk)
+
+    inf, i64 = float("inf"), torch.int64
+    state = (_full((n_net,), inf, dev),                 # min_energy
+             _full((n_net,), inf, dev),                 # min_latency
+             _full((n_net,), inf, dev),                 # min_metric
+             _full((n_net,), -1, dev, i64),             # argmin
+             _full((topk, n_net), inf, dev),            # top_v
+             _full((topk, n_net), -1, dev, i64))        # top_i
+    cand: Dict[str, list] = {nm: [] for nm in names}
+    done = 0
+    if resume_from is not None:
+        state, cand, done = _resume_fold(resume_from, kind="networks",
+                                         ihash=ihash, names=names,
+                                         device=dev)
+    if verify is not None:
+        verify.bind(kind="networks", names=names, metric=metric,
+                    topk=topk, bound=bound, backend=backend,
+                    ref_eval=_plain_ref_eval(lay, segments, False))
+        if resume_from is not None:
+            verify.check_resume(state, cand)
+    _stage("stream setup")
+
+    for ci, start, stop, fc in _chunk_rows(fields, n, chunk, done):
+        e, t = _eval_fields(fc, lay, segments, backend, dev)
+        e, t = _apply_chunk_hook(ci, e, t)
+        if nan_guard:
+            _guard_chunk(ci, start, stop, e, t, names)
+        if verify is not None:          # raises BEFORE the fold commits
+            verify.check_chunk(ci, start, stop, fc, e, t)
+        new_state, mask = _stream_reduce_body(metric, topk, e, t, start,
+                                              bound, state)
+        if verify is not None:
+            verify.check_fold(ci, start, stop, state, new_state,
+                              es=e, ts=t, mask=mask)
+        state = new_state
+        _collect_hits(cand, names, mask, e, t, start)
+        _stage("chunk fold")
+        if on_chunk is not None:
+            on_chunk(StreamFoldState(
+                kind="networks", input_hash=ihash, next_chunk=ci + 1,
+                n_chunks=n_chunks, chunk_size=chunk, n_cfg=n,
+                networks=names, metric=metric, bound=bound, topk=topk,
+                state=state, cand={nm: list(v) for nm, v in cand.items()}))
+
+    min_e, min_t, min_m, argm, top_v, top_i = (_to_host(s) for s in state)
+    b_idx, b_e, b_t = {}, {}, {}
+    for j, nm in enumerate(names):
+        idx, ee, tt, v = _pruned_candidates(cand[nm], metric, min_m[j],
+                                            bound)
+        order = np.argsort(v, kind="stable")
+        b_idx[nm], b_e[nm], b_t[nm] = idx[order], ee[order], tt[order]
+    _stage("stream finish")
+    _LAST_BACKEND = backend
+    return StreamResult(
+        networks=names, n_cfg=n, metric=metric, bound=bound,
+        min_energy=min_e, min_latency=min_t, min_metric=min_m,
+        argmin=argm, topk_idx=top_i, topk_metric=top_v,
+        boundary_idx=b_idx, boundary_energy=b_e, boundary_latency=b_t,
+        device=str(dev), backend=backend)
+
+
+# ---------------------------------------------------------------------------
+# Streaming per-layer reduction.  The per-layer tensors of a mega sweep are
+# far too large to keep ([n_cfg, n_net, n_layer]), but the co-design needs
+# only the per-layer rows of the few near-optimal configs of each network
+# and the ≤bound boundary sets.  Each chunk is evaluated in per-layer mode
+# and folded on the device into (a) a running per-network top-k that keeps
+# the [n_layer] energy/latency rows of its configs, (b) running minima of
+# energy, latency, EDP and the metric, (c) per-(network, layer) metric
+# minima, and (d) with ``bound=`` the ≤bound mask whose hits become the
+# boundary sets.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerTopK:
+    """Running reductions of a streamed per-layer sweep, as numpy arrays.
+
+    The boundary-set fields are ``None`` unless the sweep ran with a
+    ``bound=``.  ``topk_idx`` ranks by (metric, flat index): ties go to
+    the LOWER grid index, so the result does not depend on the chunk
+    size."""
+
+    networks: Tuple[str, ...]
+    n_cfg: int
+    metric: str
+    layer_counts: np.ndarray        # [n_net] valid lengths of the layer axis
+    topk_idx: np.ndarray            # [k, n_net] flat grid indices, best first
+    topk_metric: np.ndarray         # [k, n_net]
+    layer_energy: np.ndarray        # [k, n_net, n_layer]
+    layer_latency: np.ndarray       # [k, n_net, n_layer]
+    min_energy: np.ndarray | None = None      # [n_net]
+    min_latency: np.ndarray | None = None     # [n_net]
+    min_edp: np.ndarray | None = None         # [n_net]
+    min_metric: np.ndarray | None = None      # [n_net]
+    argmin: np.ndarray | None = None          # [n_net] flat index of min
+    layer_min_metric: np.ndarray | None = None   # [n_net, n_layer]
+    layer_argmin: np.ndarray | None = None       # [n_net, n_layer]
+    bound: float | None = None
+    boundary_idx: Dict[str, np.ndarray] | None = None   # sorted by metric
+    boundary_energy: Dict[str, np.ndarray] | None = None
+    boundary_latency: Dict[str, np.ndarray] | None = None
+
+    def boundary_metric(self, name: str) -> np.ndarray:
+        if self.boundary_energy is None:
+            raise ValueError("this stream carries no boundary sets — "
+                             "run stream_layer_topk with bound=")
+        return _metric_of(self.metric, self.boundary_energy[name],
+                          self.boundary_latency[name])
+
+
+def _take_rows(prev, new, order):
+    """Rows ``order`` [k, n_net] of ``cat([prev, new])`` along dim 0 for
+    [·, n_net, n_layer] operands, without building the concatenation (the
+    chunk's per-layer tensor is the large one)."""
+    k = prev.shape[0]
+    ix = order[:, :, None].expand(-1, -1, prev.shape[2])
+    from_prev = torch.gather(prev, 0, ix.clamp(max=k - 1))
+    from_new = torch.gather(new, 0, (ix - k).clamp(min=0))
+    return torch.where(ix < k, from_prev, from_new)
+
+
+def _layer_reduce_body(metric, topk, e, t, es, ts, base, bound, lay_valid,
+                       state):
+    """Fold one [rows, n_net, n_layer] per-layer chunk, with its
+    layer-summed [rows, n_net] aggregates ``es`` / ``ts``, into the
+    running state → ``(state, mask)``; ``mask`` is the ≤bound mask
+    against the *updated* running minimum.  ``lay_valid`` [n_net, n_layer]
+    masks each network's zero-padded layer tail out of the per-layer
+    minima.  Ties go to the lower flat index everywhere."""
+    (top_v, top_i, top_e, top_t, min_e, min_t, min_edp, min_m, argm,
+     lmin, larg) = state
+    v = _metric_of(metric, es, ts)
+    min_e = torch.minimum(min_e, es.amin(dim=0))
+    min_t = torch.minimum(min_t, ts.amin(dim=0))
+    min_edp = torch.minimum(min_edp, (es * ts).amin(dim=0))
+    cmin = v.amin(dim=0)
+    better = cmin < min_m
+    min_m = torch.where(better, cmin, min_m)
+    argm = torch.where(better, base + v.argmin(dim=0), argm)
+
+    # per-(network, layer) metric minima; strict < keeps the earlier
+    # (lower-index) config on ties
+    vl = torch.where(lay_valid, _metric_of(metric, e, t), float("inf"))
+    clmin = vl.amin(dim=0)
+    lbetter = clmin < lmin
+    lmin = torch.where(lbetter, clmin, lmin)
+    larg = torch.where(lbetter, base + vl.argmin(dim=0), larg)
+
+    all_v = torch.cat([top_v, v])
+    all_i = torch.cat([top_i, _chunk_index(v, base)])
+    order = _lex_order(all_v, all_i, topk)
+    top_e = _take_rows(top_e, e, order)
+    top_t = _take_rows(top_t, t, order)
+    top_v = torch.gather(all_v, 0, order)
+    top_i = torch.gather(all_i, 0, order)
+
+    mask = v <= min_m[None, :] * (1.0 + bound)
+    return (top_v, top_i, top_e, top_t, min_e, min_t, min_edp, min_m,
+            argm, lmin, larg), mask
+
+
+def stream_layer_topk(grid: ConfigGrid,
+                      networks: Mapping[str, Sequence[Layer]],
+                      *,
+                      device=None,
+                      backend: str | None = None,
+                      topk: int = 8,
+                      chunk_size: int = 4096,
+                      metric: str = "edp",
+                      bound: float | None = None,
+                      resume_from: "StreamFoldState | Mapping | None" = None,
+                      on_chunk=None,
+                      nan_guard: bool = True,
+                      verify=None) -> LayerTopK:
+    """Streamed per-layer sweep: one pass, every co-design reduction.
+
+    Equivalent to ``evaluate_networks(..., per_layer=True)`` followed by
+    per-network reductions on the layer-summed metric, at bounded memory:
+    only one chunk's ``[chunk, n_net, n_layer]`` tensors are ever alive
+    on ``device``, and the state carries ``topk`` per-layer rows per
+    network plus the running aggregate and per-(network, layer) minima.
+    With ``bound=`` the result also carries the per-network boundary
+    candidate sets (flat indices + aggregate energy/latency, sorted by
+    (metric, index)).  ``device``, ``backend``, ``resume_from``,
+    ``on_chunk``, ``nan_guard`` (on the layer sums) and ``verify`` act as
+    in :func:`stream_networks`."""
+    global _LAST_BACKEND
+    dev = resolve_device(device)
+    backend = resolve_backend(backend, dev)
+    names = tuple(networks)
+    n_net = len(names)
+    lay, segments = _device_layers(networks, dev, absorb_pad=False)
+    n_layer = _layer_axis_len(segments)
+    fields = grid.fields if isinstance(grid, ConfigGrid) else dict(grid)
+    n = int(next(iter(fields.values())).shape[0])
+    chunk = max(1, min(chunk_size, n))
+    n_chunks = -(-n // chunk)
+    lay_counts = network_layer_counts(networks)
+    lay_valid = torch.as_tensor(
+        np.arange(n_layer)[None, :] < lay_counts[:, None], device=dev)
+
+    k = int(topk)
+    inf, i64 = float("inf"), torch.int64
+    state = (_full((k, n_net), inf, dev),               # top_v
+             _full((k, n_net), -1, dev, i64),           # top_i
+             _full((k, n_net, n_layer), 0.0, dev),      # top_e
+             _full((k, n_net, n_layer), 0.0, dev),      # top_t
+             _full((n_net,), inf, dev),                 # min_energy
+             _full((n_net,), inf, dev),                 # min_latency
+             _full((n_net,), inf, dev),                 # min_edp
+             _full((n_net,), inf, dev),                 # min_metric
+             _full((n_net,), -1, dev, i64),             # argmin
+             _full((n_net, n_layer), inf, dev),         # layer_min_metric
+             _full((n_net, n_layer), -1, dev, i64))     # layer_argmin
+    b = 0.0 if bound is None else float(bound)
+    cand: Dict[str, list] = {nm: [] for nm in names}
+    ihash = stream_input_hash(fields, networks, kind="layer_topk",
+                              metric=metric, bound=bound, topk=k,
+                              chunk=chunk)
+    done = 0
+    if resume_from is not None:
+        state, cand, done = _resume_fold(resume_from, kind="layer_topk",
+                                         ihash=ihash, names=names,
+                                         device=dev)
+    if verify is not None:
+        verify.bind(kind="layer_topk", names=names, metric=metric,
+                    topk=k, bound=bound, backend=backend,
+                    ref_eval=_plain_ref_eval(lay, segments, True))
+        if resume_from is not None:
+            verify.check_resume(state, cand)
+    _stage("stream setup")
+
+    for ci, start, stop, fc in _chunk_rows(fields, n, chunk, done):
+        e, t = _eval_fields(fc, lay, segments, backend, dev, per_layer=True)
+        e, t = _apply_chunk_hook(ci, e, t)
+        es, ts = e.sum(dim=-1), t.sum(dim=-1)
+        if nan_guard:                   # raises BEFORE the fold commits
+            _guard_chunk(ci, start, stop, es, ts, names)
+        if verify is not None:
+            verify.check_chunk(ci, start, stop, fc, e, t)
+        new_state, mask = _layer_reduce_body(metric, k, e, t, es, ts, start,
+                                             b, lay_valid, state)
+        if verify is not None:
+            verify.check_fold(ci, start, stop, state, new_state,
+                              es=es, ts=ts, mask=mask)
+        state = new_state
+        if bound is not None:
+            _collect_hits(cand, names, mask, es, ts, start)
+        _stage("chunk fold")
+        if on_chunk is not None:
+            on_chunk(StreamFoldState(
+                kind="layer_topk", input_hash=ihash, next_chunk=ci + 1,
+                n_chunks=n_chunks, chunk_size=chunk, n_cfg=n,
+                networks=names, metric=metric, bound=bound, topk=k,
+                state=state, cand={nm: list(v) for nm, v in cand.items()}))
+
+    (top_v, top_i, top_e, top_t, min_e, min_t, min_edp, min_m, argm,
+     lmin, larg) = (_to_host(s) for s in state)
+    b_idx = b_e = b_t = None
+    if bound is not None:
+        b_idx, b_e, b_t = {}, {}, {}
+        for j, nm in enumerate(names):
+            idx, ee, tt, v = _pruned_candidates(cand[nm], metric, min_m[j],
+                                                b)
+            order = np.lexsort((idx, v))       # metric, then lower index
+            b_idx[nm], b_e[nm], b_t[nm] = idx[order], ee[order], tt[order]
+    _stage("stream finish")
+    _LAST_BACKEND = backend
+    return LayerTopK(
+        networks=names, n_cfg=n, metric=metric,
+        layer_counts=lay_counts,
+        topk_idx=top_i, topk_metric=top_v,
+        layer_energy=top_e, layer_latency=top_t,
+        min_energy=min_e, min_latency=min_t, min_edp=min_edp,
+        min_metric=min_m, argmin=argm,
+        layer_min_metric=lmin, layer_argmin=larg,
+        bound=bound, boundary_idx=b_idx,
+        boundary_energy=b_e, boundary_latency=b_t)
+
+
+def _shift_idx(idx: np.ndarray, offset: int) -> np.ndarray:
+    """Shift flat grid indices by ``offset``, preserving -1 sentinels."""
+    idx = np.asarray(idx)
+    return np.where(idx >= 0, idx + offset, idx)
+
+
+def merge_layer_topk(a: LayerTopK, b: LayerTopK) -> LayerTopK:
+    """Fold two completed streamed sweeps over consecutive grid-row ranges,
+    on the host in numpy.
+
+    ``a`` covers rows ``[0, a.n_cfg)`` of some grid and ``b`` the APPENDED
+    rows ``[a.n_cfg, a.n_cfg + b.n_cfg)`` streamed as a grid of their own
+    (its flat indices are local, so they are shifted by ``a.n_cfg`` here).
+    Every streamed reduction ties by (value, flat index), so the merge is
+    BIT-identical to streaming the concatenated grid from scratch.  Each
+    part's boundary set was pruned against its own minimum; the merged
+    threshold ``min(a_min, b_min)·(1+bound)`` is no looser than either, so
+    nothing pruned early is ever needed.
+    """
+    if a.networks != b.networks:
+        raise ValueError(
+            f"cannot merge streams over different network sets "
+            f"{a.networks} vs {b.networks}")
+    if a.metric != b.metric or a.bound != b.bound:
+        raise ValueError(
+            f"cannot merge streams with different reduction parameters: "
+            f"(metric, bound) = ({a.metric!r}, {a.bound}) vs "
+            f"({b.metric!r}, {b.bound})")
+    if a.topk_idx.shape != b.topk_idx.shape:
+        raise ValueError(
+            f"cannot merge streams with different top-k sizes "
+            f"{a.topk_idx.shape[0]} vs {b.topk_idx.shape[0]}")
+    off = int(a.n_cfg)
+    k = a.topk_idx.shape[0]
+
+    all_v = np.concatenate([a.topk_metric, b.topk_metric], axis=0)
+    all_i = np.concatenate([a.topk_idx, _shift_idx(b.topk_idx, off)],
+                           axis=0)
+    order = np.lexsort((all_i, all_v), axis=0)[:k]
+    top_v = np.take_along_axis(all_v, order, axis=0)
+    top_i = np.take_along_axis(all_i, order, axis=0)
+    all_e = np.concatenate([a.layer_energy, b.layer_energy], axis=0)
+    all_t = np.concatenate([a.layer_latency, b.layer_latency], axis=0)
+    top_e = np.take_along_axis(all_e, order[:, :, None], axis=0)
+    top_t = np.take_along_axis(all_t, order[:, :, None], axis=0)
+
+    # aggregate minima: strict < keeps the LOWER-index (a) side on ties
+    better = b.min_metric < a.min_metric
+    min_m = np.where(better, b.min_metric, a.min_metric)
+    argm = np.where(better, _shift_idx(b.argmin, off), a.argmin)
+    lbetter = b.layer_min_metric < a.layer_min_metric
+    lmin = np.where(lbetter, b.layer_min_metric, a.layer_min_metric)
+    larg = np.where(lbetter, _shift_idx(b.layer_argmin, off),
+                    a.layer_argmin)
+
+    b_idx = b_e = b_t = None
+    if a.bound is not None:
+        b_idx, b_e, b_t = {}, {}, {}
+        for j, nm in enumerate(a.networks):
+            entries = [(a.boundary_idx[nm], a.boundary_energy[nm],
+                        a.boundary_latency[nm]),
+                       (b.boundary_idx[nm] + off, b.boundary_energy[nm],
+                        b.boundary_latency[nm])]
+            idx, ee, tt, v = _pruned_candidates(entries, a.metric, min_m[j],
+                                                float(a.bound))
+            order = np.lexsort((idx, v))        # metric, then lower index
+            b_idx[nm], b_e[nm], b_t[nm] = idx[order], ee[order], tt[order]
+
+    return LayerTopK(
+        networks=a.networks, n_cfg=off + int(b.n_cfg), metric=a.metric,
+        layer_counts=a.layer_counts,
+        topk_idx=top_i, topk_metric=top_v,
+        layer_energy=top_e, layer_latency=top_t,
+        min_energy=np.minimum(a.min_energy, b.min_energy),
+        min_latency=np.minimum(a.min_latency, b.min_latency),
+        min_edp=np.minimum(a.min_edp, b.min_edp),
+        min_metric=min_m, argmin=argm,
+        layer_min_metric=lmin, layer_argmin=larg,
+        bound=a.bound, boundary_idx=b_idx,
+        boundary_energy=b_e, boundary_latency=b_t)

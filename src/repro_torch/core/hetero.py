@@ -15,16 +15,22 @@ The PyTorch port of the §IV.A part of ``repro.core.hetero``:
 the ``[n_array, n_psum, n_ifmap]`` metric cubes that
 :func:`repro_torch.core.dse.sweep_networks` computes on the card; it is
 the reference's code, consuming the port's sweeps.
+:func:`design_chip_streaming` runs the same cover over a streamed sweep's
+boundary sets (:func:`repro_torch.core.dse.stream_grid`), so a mega grid
+needs no full cubes.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 
+from . import energymodel
+from .accelerator import ConfigGrid
 from .dse import SweepResult, boundary_configs
+from .topology import Layer
 
 Cell = Tuple[int, int, int]     # (array_idx, psum_idx, ifmap_idx)
 
@@ -102,6 +108,66 @@ def design_chip(sweeps: Dict[str, SweepResult], bound: float = 0.05,
 
     return HeteroChip(core_types=core_types, assignment=assignment,
                       candidate_sets=candidates, sweeps=sweeps)
+
+
+@dataclasses.dataclass
+class StreamChip:
+    """Heterogeneous chip designed from a streamed sweep: core types are
+    FLAT grid indices (mega grids are not 3-D cubes)."""
+
+    core_types: List[int]
+    assignment: Dict[str, int]                # network -> core-type index
+    candidate_sets: Dict[str, List[int]]      # flat indices, best first
+    stream: "energymodel.StreamResult"
+
+    def core_label(self, idx: int, grid: ConfigGrid) -> str:
+        return grid.config_at(self.core_types[idx]).label()
+
+    def core_cells(self, shape: Tuple[int, ...]) -> List[Cell]:
+        """Unravel the flat core indices onto a sweep cube shape."""
+        return [tuple(int(x) for x in np.unravel_index(c, shape))
+                for c in self.core_types]
+
+
+def design_chip_streaming(stream: "energymodel.StreamResult",
+                          grid: ConfigGrid,
+                          networks: Mapping[str, Sequence[Layer]],
+                          max_cores: int = 4) -> StreamChip:
+    """Greedy cover over a StreamResult's boundary sets — no full cubes.
+
+    Reproduces :func:`design_chip`'s choices: any point that can cover a
+    network lies in that network's boundary set, so the greedy needs only
+    the union of the streamed candidate sets.  Networks left uncovered
+    are assigned by evaluating just the chosen core cells (a
+    ≤max_cores-point grid) on the stream's device and backend.
+    """
+    names = list(stream.networks)
+    union = np.unique(np.concatenate(
+        [stream.boundary_idx[nm] for nm in names]))
+    cand = np.zeros((len(names), union.size), dtype=bool)
+    rel = np.zeros((len(names), union.size))
+    for i, nm in enumerate(names):
+        pos = np.searchsorted(union, stream.boundary_idx[nm])
+        cand[i, pos] = True
+        rel[i, pos] = stream.boundary_metric(nm) / stream.min_metric[i]
+
+    cols, assign, uncovered = _greedy_cover(cand, rel, max_cores)
+    core_flat = [int(union[c]) for c in cols]
+    assignment = {names[i]: idx for i, idx in assign.items()}
+
+    if uncovered.any() and core_flat:
+        e, t = energymodel.evaluate_networks(
+            grid.take(core_flat), {nm: networks[nm] for nm in names},
+            device=stream.device, backend=stream.backend)
+        vals = energymodel._metric_of(stream.metric, e, t).T
+        best = np.argmin(vals, axis=1)
+        for i in np.flatnonzero(uncovered):
+            assignment[names[i]] = int(best[i])
+
+    candidate_sets = {nm: [int(c) for c in stream.boundary_idx[nm]]
+                      for nm in names}
+    return StreamChip(core_types=core_flat, assignment=assignment,
+                      candidate_sets=candidate_sets, stream=stream)
 
 
 def cross_penalty(chip: HeteroChip, network: str, other_core: int
