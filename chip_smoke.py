@@ -15,7 +15,12 @@ Phases, each fatal on any error:
    drive the DSE path (the batched engine, the quickstart steps, the
    §IV.A chip) with the launch counts set to 0 just before and read just
    after, and check its outputs against the plain path on the card and
-   against a CPU run;
+   against a CPU run; the same for the streamed DSE (both streams at
+   mega x 18, the streamed chip) and the per-layer co-design
+   (``co_design`` at extended x 18, 111 chips: cuda against torch on
+   the card, every winning schedule against the scalar oracle bit for
+   bit; ``co_design_streaming`` at extended, equal to the dense search,
+   and at mega);
 3. LM kernels: hold flash attention and RMSNorm against their plain
    versions on the card (f32 2e-5, bf16 2e-2) at the serve paths' decode
    shapes and at D 128 (split edges, a window, causal rows at an offset)
@@ -37,6 +42,7 @@ Phases, each fatal on any error:
    count-terms kernels by events, traced device time and host µs a call,
    beside a bound counted on the kernel's own decomposition; an
    ``evaluate_networks`` call's wall time, trace and host split by stage;
+   the co-design's walls, split by phase and device busy share;
    flash decode at S 405 and 1,024; prefill at D 64 and D 128; RMSNorm
    at qwen2's rows; each with its traced device time and the host time
    of a call), the serve runs and the forward with CUDA events;
@@ -565,6 +571,7 @@ def dse_path(dev, card, built) -> list:
         f"(mean {np.mean(ed):.1f}%)  [paper: up to 36% / 67%]")
 
     stream_launches = dse_stream(dev, card, nets, chip)
+    codesign_launches = codesign_path(dev, card)
 
     # times: CUDA events around a call, the traced device time of a launch,
     # the host µs of a call; the bound on the operations of
@@ -643,7 +650,8 @@ def dse_path(dev, card, built) -> list:
         rows.append(dict(
             name=kname, route="cuda", source=SOURCES[kname],
             replaces=REPLACES[kname],
-            launches=launches[kname] + stream_launches[kname],
+            launches=(launches[kname] + stream_launches[kname]
+                      + codesign_launches[kname]),
             max_abs_err=max(g["max_abs_err"] for g in per_grid[kname].values()),
             max_rel_err=max(g["max_rel_err"] for g in per_grid[kname].values()),
             ms=ext_r["kernel_ms"], device_ms=ext_r["device_ms"],
@@ -977,6 +985,282 @@ def dse_stream(dev, card, nets, chip) -> dict:
         "card": card, "grid": "mega_grid x 18", "chunks": n_chunks,
         "chunk_size": STREAM_CHUNK, "launches": launches,
         "cuda_vs_torch": backends, "resume": resume, "times": times}))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 2. The per-layer chip + schedule co-design: co_design, co_design_streaming
+# ---------------------------------------------------------------------------
+
+#: The co-design search of ``examples/dse_hetero.py``: 4 cores of up to 3
+#: types from a pool of 6 → 111 candidate chips, 1,998 problems at 18 CNNs.
+CODESIGN_KW = dict(m_cores=4, max_types=3, pool_size=6)
+CODESIGN_CHIPS = 111
+CODESIGN_REPS = 5
+#: The host stages ``hetero.py`` marks after the engine's own, in order.
+CODESIGN_MARKS = ("candidate pool", "problem expansion", "schedule solve",
+                  "scoring")
+CODESIGN_PHASES = ("sweep or stream", "candidate pool",
+                   "pool per-layer call", "problem expansion",
+                   "schedule solve", "scoring")
+
+
+def codesign_split(call, reps: int = 3) -> dict:
+    """Host split of a co-design ``call()`` on the card by phase: the sweep
+    or stream (every engine stage before the pool is built), the pool, the
+    pool's per-layer engine call (the engine's stages after it), the
+    problem expansion, the solve and the scoring; synchronised at each
+    mark → {phase: median ms over ``reps`` calls, "total": median ms}."""
+    import torch
+    from repro_torch.core import energymodel as em
+
+    def once():
+        ms = dict.fromkeys(CODESIGN_PHASES, 0.0)
+        seen = []
+        last = [time.perf_counter()]
+
+        def mark(stage):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            dt, last[0] = (now - last[0]) * 1e3, now
+            if stage in CODESIGN_MARKS:
+                seen.append(stage)
+                ms[stage] += dt
+            elif seen:
+                ms["pool per-layer call"] += dt
+            else:
+                ms["sweep or stream"] += dt
+
+        em._stage_hook = mark
+        try:
+            call()
+        finally:
+            em._stage_hook = None
+        if tuple(seen) != CODESIGN_MARKS:
+            fail(f"co-design marked {seen}, expected {CODESIGN_MARKS}")
+        return ms
+
+    once()
+    runs = [once() for _ in range(reps)]
+    split = {k: statistics.median(r[k] for r in runs)
+             for k in CODESIGN_PHASES}
+    split["total"] = statistics.median(sum(r.values()) for r in runs)
+    return split
+
+
+def _max_rel(u, w) -> float:
+    import numpy as np
+    u, w = np.asarray(u, dtype=float), np.asarray(w, dtype=float)
+    if u.shape != w.shape:
+        return float("inf")
+    d = np.abs(u - w) / np.maximum(np.abs(w), 1e-300)
+    return float(d.max(initial=0.0))
+
+
+def codesign_diffs(a, b) -> tuple:
+    """(what differs, largest relative difference of the floats) of two
+    ``CoDesign`` results: the pool, the candidates, the winning chip and
+    each schedule's types, layer types and cores must be equal; the chip
+    scores, energies, bottlenecks and loads within ``RTOL``."""
+    import numpy as np
+    out = [f"{f}: {getattr(a, f)} against {getattr(b, f)}"
+           for f in ("pool", "chip_types", "chip_counts", "core_types",
+                     "core_counts") if getattr(a, f) != getattr(b, f)]
+    if out:
+        out.append(f"scores {a.score!r} against {b.score!r}")
+    names = list(a.schedules)
+    if names != list(b.schedules):
+        return out + [f"networks {names} against {list(b.schedules)}"], \
+            float("inf")
+    for nm in names:
+        out += [f"{nm} {f}" for f in ("types", "layer_type", "layer_core")
+                if getattr(a.schedules[nm], f) != getattr(b.schedules[nm], f)]
+    loads = [np.concatenate([x.schedules[nm].loads for nm in names])
+             for x in (a, b)]
+    floats = {
+        "chip_scores": (a.chip_scores, b.chip_scores),
+        "score": (a.score, b.score),
+        "homogeneous_score": (a.homogeneous_score, b.homogeneous_score),
+        "energy": ([a.energy[n] for n in names], [b.energy[n] for n in names]),
+        "latency": ([a.latency[n] for n in names],
+                    [b.latency[n] for n in names]),
+        "loads": tuple(loads)}
+    rel = 0.0
+    for k, (u, w) in floats.items():
+        r = _max_rel(u, w)
+        rel = max(rel, r)
+        if not r <= RTOL:
+            out.append(f"{k}: max_rel_err {r:.3e}")
+    return out, rel
+
+
+def _agree(label, a, b) -> float:
+    diffs, rel = codesign_diffs(a, b)
+    if diffs:
+        fail(f"{label}: {diffs}")
+    log(f"[2] {label}: pool, candidates, chip, layer types and cores "
+        f"equal; floats within {rel:.3e}")
+    return rel
+
+
+def codesign_path(dev, card) -> dict:
+    """The per-layer co-design on the card: ``co_design`` at extended x 18
+    and ``co_design_streaming`` at extended and mega x 18 with the launch
+    counts set to 0 just before and read just after; the kernels against
+    the plain backend on the card, every winning schedule against the
+    scalar oracle, the streamed search against the dense one; timed.
+    Prints the ``codesign`` line → the path's launches."""
+    import numpy as np
+    from repro_torch.core import (accelerator, energymodel as em, hetero,
+                                  partition, topology)
+    from repro_torch.kernels.count_terms import ops
+
+    nets = {n: topology.get_network(n) for n in topology.NETWORKS}
+    ext, mega = accelerator.extended_grid(), accelerator.mega_grid()
+    n_net = len(nets)
+    lens = em.network_layer_counts(nets)
+    n_layer = int(lens.max())
+
+    def dense(backend=None):
+        return hetero.co_design(ext, nets, **CODESIGN_KW, device=dev,
+                                backend=backend)
+
+    def streamed(grid):
+        return hetero.co_design_streaming(grid, nets, **CODESIGN_KW,
+                                          device=dev, chunk_size=STREAM_CHUNK)
+
+    # the path, as a user calls it: the card and the kernels by default
+    counts = {}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    cd = hetero.co_design(ext, nets, **CODESIGN_KW)
+    counts["co_design extended"] = ops.launch_counts()
+    sd = hetero.co_design_streaming(ext, nets, **CODESIGN_KW,
+                                    chunk_size=STREAM_CHUNK)
+    counts["co_design_streaming extended"] = ops.launch_counts()
+    md = hetero.co_design_streaming(mega, nets, **CODESIGN_KW,
+                                    chunk_size=STREAM_CHUNK)
+    launches = ops.launch_counts()
+    counts["co_design_streaming mega"] = launches
+    backend = em.last_backend()
+    secs = time.perf_counter() - t0
+    per_call, prev = {}, {k: 0 for k in launches}
+    for call, now in counts.items():
+        per_call[call] = {k: now[k] - prev[k] for k in now}
+        prev = now
+    want = {"co_design extended": {"count_terms": 1, "count_layers": 1}}
+    for gname, grid in (("extended", ext), ("mega", mega)):
+        want[f"co_design_streaming {gname}"] = {
+            "count_terms": 0,
+            "count_layers": -(-grid.n // STREAM_CHUNK) + 1}
+    log(f"[2] co-design path in {secs:.1f} s: backend {backend}, launches "
+        f"a call {per_call}")
+    if backend != "cuda":
+        fail(f"co-design path ran on backend {backend!r}")
+    if per_call != want:
+        fail(f"co-design launches {per_call}, expected {want} (the sweep's "
+             f"count_terms, one count_layers a chunk and one for the pool)")
+
+    # the problem set: shapes, and the kernels against the plain backend
+    probs = {b: hetero.codesign_problems(ext, nets, **CODESIGN_KW,
+                                         device=dev, backend=b)
+             for b in ("cuda", "torch")}
+    p = probs["cuda"]
+    n_b = CODESIGN_CHIPS * n_net
+    shapes = {"lat_dense": (n_b, 3, n_layer), "counts": (n_b, 3),
+              "n_layers_b": (n_b,), "e_layer": (6, n_net, n_layer),
+              "t_layer": (6, n_net, n_layer)}
+    got = {f: getattr(p, f).shape for f in shapes}
+    if got != shapes or len(p.chips) != CODESIGN_CHIPS:
+        fail(f"co-design problem shapes {got}, {len(p.chips)} chips; "
+             f"expected {shapes}, {CODESIGN_CHIPS}")
+    if not all(np.isfinite(getattr(p, f)).all() and (getattr(p, f) >= 0).all()
+               for f in ("lat_dense", "e_layer", "t_layer")):
+        fail("co-design problem tensors: non-finite or negative values")
+    if (p.pool, p.chips) != (probs["torch"].pool, probs["torch"].chips):
+        fail(f"pool differs between backends: cuda {p.pool}, torch "
+             f"{probs['torch'].pool}")
+    tensor_rel = max(_max_rel(getattr(p, f), getattr(probs["torch"], f))
+                     for f in ("lat_dense", "e_layer", "t_layer",
+                               "min_energy", "min_latency", "min_edp"))
+    if not tensor_rel <= RTOL:
+        fail(f"co-design problem tensors: cuda against torch {tensor_rel}")
+    log(f"[2] codesign_problems at extended x 18: {len(p.chips)} chips, "
+        f"{p.n_problems} problems, lat_dense {p.lat_dense.shape}; cuda "
+        f"against torch on the card within {tensor_rel:.3e}")
+    del probs, p
+
+    agree = {"cuda_vs_torch": _agree(
+        "co_design at extended x 18, cuda against torch on the card",
+        cd, dense("torch"))}
+
+    # every winning schedule against the scalar oracle, bit for bit, on the
+    # port's own per-layer tensors of the winning types
+    e_l, t_l = em.evaluate_networks(ext.take(cd.core_types), nets,
+                                    device=dev, per_layer=True)
+    for j, nm in enumerate(nets):
+        oracle = partition.schedule_hetero_oracle(t_l[:, j, :lens[j]],
+                                                  cd.core_counts)
+        s = cd.schedules[nm]
+        if not (s.bottleneck == oracle["bottleneck"] == cd.latency[nm]
+                and s.layer_type == tuple(int(t) for t in
+                                          oracle["layer_type"])):
+            fail(f"{nm}: schedule bottleneck {s.bottleneck!r} against the "
+                 f"oracle's {oracle['bottleneck']!r}, or its layer types "
+                 f"differ")
+        want_e = e_l[oracle["layer_type"], j, np.arange(lens[j])].sum()
+        if not _max_rel(cd.energy[nm], want_e) <= RTOL:
+            fail(f"{nm}: scheduled energy {cd.energy[nm]!r} against "
+                 f"{want_e!r}")
+    log(f"[2] co_design's {n_net} winning schedules equal "
+        f"schedule_hetero_oracle bit for bit (bottleneck, layer types)")
+    agree["streamed_vs_dense"] = _agree(
+        f"co_design_streaming at extended (chunks of {STREAM_CHUNK}) "
+        f"against co_design", sd, cd)
+    if not (md.n_chips == CODESIGN_CHIPS and sum(md.core_counts) == 4
+            and np.isfinite(md.chip_scores).all()
+            and md.score <= md.homogeneous_score
+            and all(md.schedules[nm].n_layers == lens[j]
+                    for j, nm in enumerate(nets))):
+        fail(f"co_design_streaming at mega: {md.n_chips} chips, counts "
+             f"{md.core_counts}, score {md.score} against homogeneous "
+             f"{md.homogeneous_score}")
+    log(f"[2] co-designed chip at extended x 18: {cd.summary(ext)} (score "
+        f"{cd.score:.6f}, best homogeneous {cd.homogeneous_score:.6f}); at "
+        f"mega x 18 from the stream: {md.summary(mega)} (score "
+        f"{md.score:.6f}, best homogeneous {md.homogeneous_score:.6f})")
+
+    # times: wall (median of CODESIGN_REPS), the split by phase, a trace
+    times = {}
+    match = ("count_terms_kernel", "count_layers_kernel")
+    for name, call, steps in (
+            ("co_design extended", dense, 2),
+            ("co_design_streaming mega", lambda: streamed(mega), 1)):
+        w_ms = wall_ms(call, reps=CODESIGN_REPS)
+        split = codesign_split(call)
+        prof = profile_ms(call, steps=steps, match=match)
+        times[name] = dict(
+            wall_ms=w_ms, split_ms=split, device_ms=prof["device_ms"],
+            busy_share=prof["busy_share"],
+            device_launches=prof["kernel_launches"],
+            kernel_ms=prof["matched_ms"], launches=per_call[name],
+            top_host=prof["top_host"])
+        log(f"[6] {name} x 18: wall {w_ms:.2f} ms (median of "
+            f"{CODESIGN_REPS}); device busy {prof['device_ms']:.3f} ms "
+            f"({100 * prof['busy_share']:.2f}%), "
+            f"{prof['kernel_launches']:.0f} device launches, kernels "
+            f"{prof['matched_ms']}, count-terms launches {per_call[name]} "
+            f"({card})")
+        log(f"[6] split of {name} (ms, median of 3, synchronised at each "
+            f"mark): " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+            + f" ({card})")
+    log("codesign " + json.dumps({
+        "card": card, "kw": CODESIGN_KW, "chunk_size": STREAM_CHUNK,
+        "chips": CODESIGN_CHIPS, "problems": n_b,
+        "launches_per_call": per_call, "agreement_max_rel": agree,
+        "chip_extended": cd.summary(ext), "score_extended": cd.score,
+        "chip_mega": md.summary(mega), "score_mega": md.score,
+        "times": times}))
     return launches
 
 

@@ -1,6 +1,7 @@
-"""Heterogeneous multi-core chip scheme (§IV.A).
+"""Heterogeneous multi-core chip scheme (§IV.A) and its per-layer
+co-design with the layer schedule (§IV.A × §IV.B).
 
-The PyTorch port of the §IV.A part of ``repro.core.hetero``:
+The PyTorch port of ``repro.core.hetero`` up to ``score_codesign``:
 
 1.  For every network, evaluate the target metric (EDP by default) over the
     whole search space and keep every configuration within a boundary (5%)
@@ -18,17 +19,31 @@ the reference's code, consuming the port's sweeps.
 :func:`design_chip_streaming` runs the same cover over a streamed sweep's
 boundary sets (:func:`repro_torch.core.dse.stream_grid`), so a mega grid
 needs no full cubes.
+
+:func:`co_design` goes one level deeper: instead of assigning each
+network WHOLE to one core type, it searches candidate multi-core chips (a
+type multiset drawn from a pool of near-optimal configurations) and
+schedules every network's LAYERS over the chip's cores.  The pool comes
+from one sweep (:func:`codesign_problems`) or one chunked
+:func:`repro_torch.core.energymodel.stream_layer_topk` pass
+(:func:`codesign_problems_streaming`), both through
+:func:`_candidate_pool`; one ``per_layer=True`` engine call on the card
+evaluates the pool, and one host call of
+:func:`repro_torch.core.partition.batch_schedule_hetero` solves every
+(chip × network) schedule.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import warnings
 from typing import Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 
-from . import energymodel
-from .accelerator import ConfigGrid
+from . import energymodel, partition
+from .accelerator import GRID_COLUMNS, ConfigGrid
 from .dse import SweepResult, boundary_configs
 from .topology import Layer
 
@@ -73,6 +88,45 @@ def _greedy_cover(cand: np.ndarray, rel: np.ndarray, max_cores: int):
             assign[int(i)] = idx
         uncovered &= ~covered_now
     return cols, assign, uncovered
+
+
+def _row_key(grid: ConfigGrid, i: int) -> Tuple[float, ...]:
+    """Hashable config-row key of one grid point: two grid points with
+    identical columns are the SAME core type, whatever their flat index."""
+    return tuple(float(grid.fields[k][i]) for k in GRID_COLUMNS)
+
+
+def _candidate_pool(cand: np.ndarray, rel: np.ndarray, pool_size: int,
+                    ids: np.ndarray, key_fn) -> List[int]:
+    """The pool builder of the co-design path, dense and streamed alike.
+
+    ``cand``/``rel`` are [n_net, n_pts] over candidate point columns
+    (``ids[c]`` is column ``c``'s flat grid index, ascending); the pool is
+    the :func:`_greedy_cover` prefix of the boundary sets topped up with
+    the best near-optimal points in (rel.min over networks, flat index)
+    lex order.  Unknown ``rel`` entries are +inf (a streamed column
+    outside a network's boundary/top-k sets): the cover never reads them
+    and +inf can only push a column DOWN the top-up ranking, so dense and
+    streamed pools cannot drift.  Points whose config row duplicates one
+    already pooled (``key_fn(column)``) are skipped."""
+    pool: List[int] = []
+    seen: set = set()
+
+    def add(c: int) -> None:
+        key = key_fn(int(c))
+        if key not in seen:
+            seen.add(key)
+            pool.append(int(ids[c]))
+
+    cols, _, _ = _greedy_cover(cand, rel, pool_size)
+    for c in cols:
+        add(c)
+    if len(pool) < pool_size:
+        for c in np.lexsort((ids, rel.min(axis=0))):
+            add(int(c))
+            if len(pool) == pool_size:
+                break
+    return pool
 
 
 def design_chip(sweeps: Dict[str, SweepResult], bound: float = 0.05,
@@ -181,6 +235,428 @@ def cross_penalty(chip: HeteroChip, network: str, other_core: int
     d_d = (sw.latency[oth] - sw.latency[own]) / sw.latency[own] * 100.0
     d_edp = (sw.edp[oth] - sw.edp[own]) / sw.edp[own] * 100.0
     return dict(dE=float(d_e), dD=float(d_d), dEDP=float(d_edp))
+
+
+# ---------------------------------------------------------------------------
+# Batched per-layer co-design (§IV.A × §IV.B fused): which multi-core chip,
+# and which layer→core schedule on it, for every network at once.  The
+# sweep or stream and the pool's per-layer call run on the engine's device;
+# the pool, the problem expansion, the solve and the scoring are host
+# numpy, each closed by a stage mark (``energymodel._stage``).
+# ---------------------------------------------------------------------------
+
+
+def _compositions(n: int, k: int):
+    """Positive integer k-tuples summing to n (core counts per type)."""
+    if k == 1:
+        yield (n,)
+        return
+    for first in range(1, n - k + 2):
+        for rest in _compositions(n - first, k - 1):
+            yield (first,) + rest
+
+
+def _enumerate_chips(pool_size: int, max_types: int, m_cores: int
+                     ) -> List[Tuple[Tuple[int, ...], Tuple[int, ...]]]:
+    """All candidate chips: (pool positions, per-type core counts)."""
+    chips = []
+    for k in range(1, min(max_types, m_cores, pool_size) + 1):
+        for combo in itertools.combinations(range(pool_size), k):
+            for comp in _compositions(m_cores, k):
+                chips.append((combo, comp))
+    return chips
+
+
+def _expand_pool_tensor(tensor: np.ndarray, chips, n_net: int,
+                        t_max: int) -> np.ndarray:
+    """[pool, n_net, L] per-layer pool tensor → the chip-major problem
+    block [n_chips · n_net, t_max, L]: each chip's type rows gathered and
+    laid out network-major within the chip (unused type slots stay 0).
+    Both the solver latencies and the energy attribution go through THIS
+    layout, so they cannot desynchronise."""
+    n_layer = tensor.shape[2]
+    n_chips = len(chips)
+    tmap = np.zeros((n_chips, t_max), dtype=np.intp)
+    tuse = np.zeros((n_chips, t_max), dtype=bool)
+    for ci, (ty, _) in enumerate(chips):
+        tmap[ci, :len(ty)] = ty
+        tuse[ci, :len(ty)] = True
+    out = np.where(tuse[:, :, None, None], tensor[tmap], 0.0)
+    return out.transpose(0, 2, 1, 3).reshape(n_chips * n_net, t_max,
+                                             n_layer)
+
+
+@dataclasses.dataclass
+class CoDesign:
+    """Result of the batched chip + layer-schedule co-design search."""
+
+    core_types: List[int]                 # winning chip: flat grid indices
+    core_counts: List[int]                # cores per type (Σ == m_cores)
+    schedules: Dict[str, "partition.HeteroSchedule"]   # per network
+    energy: Dict[str, float]              # Σ per-layer energy as scheduled
+    latency: Dict[str, float]             # pipeline bottleneck (ns)
+    score: float                          # winning chip's mean norm. metric
+    homogeneous_score: float              # best single-type chip's score
+    metric: str
+    m_cores: int
+    pool: List[int]                       # candidate type pool (flat idx)
+    chip_types: List[Tuple[int, ...]]     # every candidate: pool positions
+    chip_counts: List[Tuple[int, ...]]
+    chip_scores: np.ndarray               # [n_chips]
+
+    @property
+    def n_chips(self) -> int:
+        return len(self.chip_types)
+
+    def edp(self, name: str) -> float:
+        return self.energy[name] * self.latency[name]
+
+    def core_label(self, idx: int, grid: ConfigGrid) -> str:
+        return grid.config_at(self.core_types[idx]).label()
+
+    def summary(self, grid: ConfigGrid) -> str:
+        parts = [f"{c}x {self.core_label(i, grid)}"
+                 for i, c in enumerate(self.core_counts)]
+        return " + ".join(parts)
+
+
+@dataclasses.dataclass
+class CoDesignProblems:
+    """The materialised (chip × network) schedule problem set: steps 1–3
+    of :func:`co_design` without the solve."""
+
+    names: List[str]
+    pool: List[int]                        # candidate types (flat idx)
+    chips: List[Tuple[Tuple[int, ...], Tuple[int, ...]]]  # (types, counts)
+    lat_dense: np.ndarray                  # [B, t_max, n_layer] solver input
+    n_layers_b: np.ndarray                 # [B] true lengths per problem
+    counts: np.ndarray                     # [B, t_max]
+    e_layer: np.ndarray                    # [pool, n_net, n_layer]
+    t_layer: np.ndarray
+    # per-network sweep minima, the chip-scoring references: reduced from
+    # the dense sweep, or carried out of the stream's running reductions
+    min_energy: np.ndarray                 # [n_net]
+    min_latency: np.ndarray                # [n_net]
+    min_edp: np.ndarray                    # [n_net]
+    lens: np.ndarray                       # [n_net] true layer counts
+
+    @property
+    def n_problems(self) -> int:
+        return int(self.lat_dense.shape[0])
+
+    @property
+    def lats(self) -> List[np.ndarray]:
+        """Per-problem [n_types, n_layers] views (the scalar oracle's
+        input format)."""
+        return [self.lat_dense[i, :, :self.n_layers_b[i]]
+                for i in range(self.n_problems)]
+
+
+def _problems_from_pool(grid: ConfigGrid,
+                        networks: Mapping[str, Sequence[Layer]],
+                        pool: List[int], m_cores: int, max_types: int,
+                        refs: Tuple[np.ndarray, np.ndarray, np.ndarray],
+                        device, backend: str | None) -> CoDesignProblems:
+    """Pool → problem set (steps 2–3 of :func:`co_design`): ONE
+    ``per_layer=True`` engine call on the pool, on ``device`` and
+    ``backend``, then the dense (chip candidate × network) solver
+    tensors.  Shared by the dense and streaming constructors; only the
+    pool discovery and the reference minima (``refs``) differ."""
+    names = list(networks)
+    n_net = len(names)
+    e_l, t_l = energymodel.evaluate_networks(
+        grid.take(pool), networks, device=device, backend=backend,
+        per_layer=True)                                   # [P, n_net, L]
+    lens = energymodel.network_layer_counts(networks)
+
+    chips = _enumerate_chips(len(pool), max_types, m_cores)
+    t_max = max(len(ty) for ty, _ in chips)
+    lat_b = _expand_pool_tensor(t_l, chips, n_net, t_max)
+    counts_b = np.zeros((len(chips) * n_net, t_max), dtype=np.int64)
+    for ci, (ty, cn) in enumerate(chips):
+        counts_b[ci * n_net:(ci + 1) * n_net, :len(cn)] = cn
+    probs = CoDesignProblems(names=names, pool=pool, chips=chips,
+                             lat_dense=lat_b,
+                             n_layers_b=np.tile(lens, len(chips)),
+                             counts=counts_b, e_layer=e_l, t_layer=t_l,
+                             min_energy=np.asarray(refs[0], dtype=float),
+                             min_latency=np.asarray(refs[1], dtype=float),
+                             min_edp=np.asarray(refs[2], dtype=float),
+                             lens=lens)
+    energymodel._stage("problem expansion")
+    return probs
+
+
+def codesign_problems(grid: ConfigGrid,
+                      networks: Mapping[str, Sequence[Layer]],
+                      m_cores: int = 4,
+                      *,
+                      max_types: int = 3,
+                      pool_size: int = 6,
+                      bound: float = 0.05,
+                      metric: str = "edp",
+                      device=None,
+                      backend: str | None = None) -> CoDesignProblems:
+    """Build the co-design problem set: dense sweep → boundary-set pool →
+    per-layer pool tensors → every (chip candidate × network) problem.
+    ``device`` (default: the card; raises without one) and ``backend``
+    act as in :func:`repro_torch.core.energymodel.evaluate_networks`."""
+    e, t = energymodel.evaluate_networks(grid, networks, device=device,
+                                         backend=backend)
+
+    val = energymodel._metric_of(metric, e, t)            # [n, n_net]
+    mins = val.min(axis=0)
+    cand = (val <= mins[None, :] * (1.0 + bound)).T       # [n_net, n]
+    rel = (val / mins[None, :]).T
+    pool = _candidate_pool(cand, rel, min(pool_size, grid.n),
+                           np.arange(grid.n),
+                           lambda c: _row_key(grid, c))
+    refs = (e.min(axis=0), t.min(axis=0), (e * t).min(axis=0))
+    energymodel._stage("candidate pool")
+    return _problems_from_pool(grid, networks, pool, m_cores, max_types,
+                               refs, device, backend)
+
+
+def codesign_problems_streaming(grid: ConfigGrid,
+                                networks: Mapping[str, Sequence[Layer]],
+                                m_cores: int = 4,
+                                *,
+                                max_types: int = 3,
+                                pool_size: int = 6,
+                                bound: float = 0.05,
+                                metric: str = "edp",
+                                device=None,
+                                backend: str | None = None,
+                                chunk_size: int = 2048,
+                                topk: int | None = None,
+                                stream: "energymodel.LayerTopK | None" = None,
+                                resume_from=None,
+                                on_chunk=None,
+                                nan_guard: bool = True,
+                                ) -> CoDesignProblems:
+    """Streamed twin of :func:`codesign_problems`: the candidate pool and
+    the scoring references come from ONE chunked
+    :func:`repro_torch.core.energymodel.stream_layer_topk` pass (boundary
+    sets + top-k + running minima), so the full ``[n_cfg, n_net]``
+    matrices never exist and a 49,000-point mega grid feeds the pool at
+    bounded memory.
+
+    Reproduces the dense pool: the greedy cover only reads boundary-set
+    points (all streamed), and the top-up ranking by ``rel.min`` over
+    networks is covered by the per-network top-k.  A grid whose rows are
+    DUPLICATED many times over can saturate a network's top-k with
+    copies of one row, hiding distinct rows the dense top-up would reach;
+    the function warns whenever a network's top-k holds fewer distinct
+    config rows than the pool needs (pass a larger ``topk=`` then).
+    Pass ``stream=`` to reuse an existing sweep (it must cover the same
+    grid with the same bound/metric and ``topk ≥ pool_size``);
+    ``resume_from`` / ``on_chunk`` / ``nan_guard`` forward to the stream
+    (ignored when ``stream=`` is supplied)."""
+    names = list(networks)
+    n_net = len(names)
+    if stream is None:
+        stream = energymodel.stream_layer_topk(
+            grid, networks, device=device, backend=backend,
+            topk=max(int(pool_size if topk is None else topk), 1),
+            bound=bound, metric=metric, chunk_size=chunk_size,
+            resume_from=resume_from, on_chunk=on_chunk,
+            nan_guard=nan_guard)
+    if stream.n_cfg != grid.n:
+        raise ValueError(
+            f"stream was built over a {stream.n_cfg}-point grid but the "
+            f"pool was requested on a {grid.n}-point one — its flat "
+            "indices would be looked up against the wrong grid")
+    if stream.bound is None:
+        raise ValueError("stream must carry boundary sets — run "
+                         "stream_layer_topk with bound=")
+    if stream.bound != bound or stream.metric != metric:
+        raise ValueError(
+            "stream was built with (bound, metric)="
+            f"({stream.bound}, {stream.metric!r}) but the pool was "
+            f"requested with ({bound}, {metric!r}) — pass matching "
+            "arguments, or rebuild the stream (the dense-equivalence "
+            "contract holds only when they agree)")
+    if stream.topk_idx.shape[0] < min(pool_size, grid.n):
+        raise ValueError("stream top-k too small for the pool: need "
+                         f"topk >= {min(pool_size, grid.n)}, got "
+                         f"{stream.topk_idx.shape[0]}")
+
+    # candidate columns: union of every boundary set and every top-k hit
+    tk = stream.topk_idx[stream.topk_idx >= 0]
+    pts = np.unique(np.concatenate(
+        [stream.boundary_idx[nm] for nm in names] + [tk.ravel()]))
+    cand = np.zeros((n_net, pts.size), dtype=bool)
+    rel = np.full((n_net, pts.size), np.inf)
+    for j, nm in enumerate(names):
+        pos = np.searchsorted(pts, stream.boundary_idx[nm])
+        cand[j, pos] = True
+        rel[j, pos] = stream.boundary_metric(nm) / stream.min_metric[j]
+        tkj = stream.topk_idx[:, j]
+        valid = tkj >= 0
+        pos = np.searchsorted(pts, tkj[valid])
+        rel[j, pos] = np.minimum(
+            rel[j, pos], stream.topk_metric[valid, j] / stream.min_metric[j])
+
+    # the dense-equivalence argument needs each network's top-k to expose
+    # its top-`pool_size` DISTINCT config rows; warn where it does not
+    limit = min(pool_size, grid.n)
+    for j in range(n_net):
+        tkj = stream.topk_idx[:, j]
+        keys = {_row_key(grid, int(i)) for i in tkj[tkj >= 0]}
+        if len(keys) < limit:
+            warnings.warn(
+                f"network {names[j]!r}: top-{stream.topk_idx.shape[0]} "
+                f"holds only {len(keys)} distinct config rows (< "
+                f"{limit}): duplicated grid rows can saturate the "
+                "streamed top-k with copies, so the pool may diverge "
+                "from the dense codesign_problems pool — rebuild with "
+                "a larger topk= to restore dense-pool equivalence",
+                RuntimeWarning, stacklevel=2)
+            break
+    pool = _candidate_pool(cand, rel, limit, pts,
+                           lambda c: _row_key(grid, int(pts[c])))
+    refs = (stream.min_energy, stream.min_latency, stream.min_edp)
+    energymodel._stage("candidate pool")
+    return _problems_from_pool(grid, networks, pool, m_cores, max_types,
+                               refs, device, backend)
+
+
+def _solve(probs: CoDesignProblems) -> "partition.BatchHeteroResult":
+    res = partition.batch_schedule_hetero(probs.lat_dense, probs.counts,
+                                          n_layers=probs.n_layers_b)
+    energymodel._stage("schedule solve")
+    return res
+
+
+def co_design(grid: ConfigGrid,
+              networks: Mapping[str, Sequence[Layer]],
+              m_cores: int = 4,
+              *,
+              max_types: int = 3,
+              pool_size: int = 6,
+              bound: float = 0.05,
+              metric: str = "edp",
+              device=None,
+              backend: str | None = None) -> CoDesign:
+    """Batched heterogeneous chip + per-layer schedule co-design (§IV).
+
+    1. One dense sweep on ``device`` ranks every grid point per network;
+       the candidate core-type POOL is the greedy-cover prefix of the
+       ≤``bound`` boundary sets (the cover ``design_chip`` runs), topped
+       up with the best near-optimal cells.
+    2. ONE ``per_layer=True`` engine call evaluates the pool → the
+       ``[pool, n_net, n_layer]`` per-layer energy/latency tensors.
+    3. Every chip candidate — type subsets of the pool (≤ ``max_types``)
+       × core-count compositions of ``m_cores`` — is scheduled for every
+       network by ONE host call of ``partition.batch_schedule_hetero``
+       over all (chip × network) problems.
+    4. Chips are scored by the per-network scheduled metric (energy as
+       assigned / pipeline bottleneck / their product for ``"edp"``),
+       normalised by that network's sweep minimum and averaged; the
+       arg-min chip wins and only ITS schedules are materialised.
+
+    ``homogeneous_score`` is the best single-type candidate's score (the
+    §IV.B baseline: ``m_cores`` identical cores)."""
+    probs = codesign_problems(grid, networks, m_cores,
+                              max_types=max_types, pool_size=pool_size,
+                              bound=bound, metric=metric, device=device,
+                              backend=backend)
+    return score_codesign(probs, _solve(probs), metric=metric,
+                          m_cores=m_cores)
+
+
+def co_design_streaming(grid: ConfigGrid,
+                        networks: Mapping[str, Sequence[Layer]],
+                        m_cores: int = 4,
+                        *,
+                        max_types: int = 3,
+                        pool_size: int = 6,
+                        bound: float = 0.05,
+                        metric: str = "edp",
+                        device=None,
+                        backend: str | None = None,
+                        chunk_size: int = 2048,
+                        topk: int | None = None,
+                        stream: "energymodel.LayerTopK | None" = None,
+                        ) -> CoDesign:
+    """:func:`co_design` fed by the streaming engine: the candidate pool
+    comes from ONE chunked ``energymodel.stream_layer_topk`` pass over
+    ``grid`` instead of a dense sweep, so
+    mega-scale spaces (``mega_grid()``, 49,000 points) co-design at
+    bounded memory.  Steps 2–4 are the dense path's; where both fit, the
+    streamed pool (and so the winning chip and every schedule) is the
+    dense :func:`co_design`'s."""
+    probs = codesign_problems_streaming(
+        grid, networks, m_cores, max_types=max_types, pool_size=pool_size,
+        bound=bound, metric=metric, device=device, backend=backend,
+        chunk_size=chunk_size, topk=topk, stream=stream)
+    return score_codesign(probs, _solve(probs), metric=metric,
+                          m_cores=m_cores)
+
+
+def _scheduled_energy(probs: CoDesignProblems,
+                      res: "partition.BatchHeteroResult") -> np.ndarray:
+    """[B] total energy of every problem as scheduled: the chip-major
+    expansion the solver latencies used, then one gather over the
+    assigned types."""
+    n_net = len(probs.names)
+    t_max = probs.counts.shape[1]
+    n_layer = probs.e_layer.shape[2]
+    en_b = _expand_pool_tensor(probs.e_layer, probs.chips, n_net, t_max)
+    tt = res.layer_type[:, :n_layer]
+    return np.take_along_axis(
+        en_b, tt[:, None, :], axis=1)[:, 0, :].sum(-1)    # [B]
+
+
+def score_codesign(probs: CoDesignProblems,
+                   res: "partition.BatchHeteroResult",
+                   *, metric: str = "edp", m_cores: int = 4,
+                   deadline: float | None = None) -> CoDesign:
+    """Step 4 of :func:`co_design`: fold a solved problem set into chip
+    scores and materialise the winning chip's schedules.
+
+    ``deadline`` (the energy-aware slack schedule under a relative
+    deadline) needs ``partition.batch_slack_schedule``, which the port
+    does not have yet: any value other than ``None`` raises
+    ``NotImplementedError``."""
+    if deadline is not None:
+        raise NotImplementedError(
+            "score_codesign(deadline=...) needs the deadline-slack solver "
+            "(partition.batch_slack_schedule), which the next slice of the "
+            "port brings; the port has no schedule under a deadline yet")
+    names, chips, pool = probs.names, probs.chips, probs.pool
+    n_net, n_chips = len(names), len(chips)
+
+    bott = res.bottleneck.reshape(n_chips, n_net)
+    energy = _scheduled_energy(probs, res).reshape(n_chips, n_net)
+    if metric == "energy":
+        cell, ref = energy, probs.min_energy
+    elif metric == "latency":
+        cell, ref = bott, probs.min_latency
+    else:
+        cell, ref = energy * bott, probs.min_edp
+    chip_scores = (cell / ref[None, :]).mean(axis=1)
+    best = int(np.argmin(chip_scores))
+    homog = min(chip_scores[ci] for ci, (ty, _) in enumerate(chips)
+                if len(ty) == 1)
+
+    ty, cn = chips[best]
+    schedules = {nm: res.schedule(best * n_net + j)
+                 for j, nm in enumerate(names)}
+    out = CoDesign(
+        core_types=[pool[p] for p in ty],
+        core_counts=list(cn),
+        schedules=schedules,
+        energy={nm: float(energy[best, j]) for j, nm in enumerate(names)},
+        latency={nm: float(bott[best, j]) for j, nm in enumerate(names)},
+        score=float(chip_scores[best]),
+        homogeneous_score=float(homog),
+        metric=metric, m_cores=m_cores, pool=pool,
+        chip_types=[c[0] for c in chips],
+        chip_counts=[c[1] for c in chips],
+        chip_scores=chip_scores)
+    energymodel._stage("scoring")
+    return out
 
 
 def savings_summary(chip: HeteroChip) -> Dict[str, Dict[str, float]]:
