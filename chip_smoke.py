@@ -20,7 +20,14 @@ Phases, each fatal on any error:
    (``co_design`` at extended x 18, 111 chips: cuda against torch on
    the card, every winning schedule against the scalar oracle bit for
    bit; ``co_design_streaming`` at extended, equal to the dense search,
-   and at mega);
+   and at mega); and the co-design under a deadline and under faults
+   (``resilience_codesign`` at extended x 18 with two degraded PE arrays,
+   10 scenarios a chip, ``count_layers`` on each degraded pool against
+   its plain version and every field on both backends;
+   ``score_codesign(deadline=2.0)``, ``pareto_codesign(slack=True)`` and
+   the streamed mega ``pareto_codesign``; seeded cells against
+   ``slack_schedule_oracle`` and ``schedule_hetero_oracle`` bit for bit;
+   the Pareto guardrails and the resilience front);
 3. LM kernels: hold flash attention and RMSNorm against their plain
    versions on the card (f32 2e-5, bf16 2e-2) at the serve paths' decode
    shapes and at D 128 (split edges, a window, causal rows at an offset)
@@ -42,7 +49,8 @@ Phases, each fatal on any error:
    count-terms kernels by events, traced device time and host µs a call,
    beside a bound counted on the kernel's own decomposition; an
    ``evaluate_networks`` call's wall time, trace and host split by stage;
-   the co-design's walls, split by phase and device busy share;
+   the co-design's walls, split by phase and device busy share, and the
+   same for the deadline, Pareto and resilience calls;
    flash decode at S 405 and 1,024; prefill at D 64 and D 128; RMSNorm
    at qwen2's rows; each with its traced device time and the host time
    of a call), the serve runs and the forward with CUDA events;
@@ -186,7 +194,8 @@ def bound(n_bytes: float, ops: float, peak: float) -> tuple:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def profile_ms(fn, steps: int, match: tuple = ()) -> dict:
+def profile_ms(fn, steps: int, match: tuple = (), warmup: bool = True
+               ) -> dict:
     """Trace ``steps`` calls of fn with torch.profiler → wall ms per call,
     device kernel ms per call (kernels on one stream do not overlap, so
     their sum over the wall time is the device's busy share), kernel
@@ -194,12 +203,13 @@ def profile_ms(fn, steps: int, match: tuple = ()) -> dict:
     each substring of ``match`` the device ms per call and per launch of
     the kernels whose names hold it (the tracer may miss the first
     kernels of a short window; a time per launch does not depend on
-    how many it saw)."""
+    how many it saw; ``warmup=False`` skips the untraced first call)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -572,6 +582,7 @@ def dse_path(dev, card, built) -> list:
 
     stream_launches = dse_stream(dev, card, nets, chip)
     codesign_launches = codesign_path(dev, card)
+    deadline_launches = deadline_path(dev, card)
 
     # times: CUDA events around a call, the traced device time of a launch,
     # the host µs of a call; the bound on the operations of
@@ -651,7 +662,8 @@ def dse_path(dev, card, built) -> list:
             name=kname, route="cuda", source=SOURCES[kname],
             replaces=REPLACES[kname],
             launches=(launches[kname] + stream_launches[kname]
-                      + codesign_launches[kname]),
+                      + codesign_launches[kname]
+                      + deadline_launches[kname]),
             max_abs_err=max(g["max_abs_err"] for g in per_grid[kname].values()),
             max_rel_err=max(g["max_rel_err"] for g in per_grid[kname].values()),
             ms=ext_r["kernel_ms"], device_ms=ext_r["device_ms"],
@@ -997,55 +1009,60 @@ def dse_stream(dev, card, nets, chip) -> dict:
 CODESIGN_KW = dict(m_cores=4, max_types=3, pool_size=6)
 CODESIGN_CHIPS = 111
 CODESIGN_REPS = 5
-#: The host stages ``hetero.py`` marks after the engine's own, in order.
+#: The host stages a ``co_design`` call marks after the engine's own.
 CODESIGN_MARKS = ("candidate pool", "problem expansion", "schedule solve",
                   "scoring")
-CODESIGN_PHASES = ("sweep or stream", "candidate pool",
-                   "pool per-layer call", "problem expansion",
-                   "schedule solve", "scoring")
+#: The host stages ``hetero.py`` marks; engine stages between them go to
+#: the phase of the last mark seen (none: "sweep or stream").
+HETERO_MARKS = ("candidate pool", "problem expansion", "schedule solve",
+                "slack solve", "pareto scoring", "degraded evaluation",
+                "scenario solve", "scoring")
+ENGINE_PHASE = {None: "sweep or stream",
+                "candidate pool": "pool per-layer call",
+                "problem expansion": "degraded evaluation"}
 
 
-def codesign_split(call, reps: int = 3) -> dict:
-    """Host split of a co-design ``call()`` on the card by phase: the sweep
-    or stream (every engine stage before the pool is built), the pool, the
-    pool's per-layer engine call (the engine's stages after it), the
-    problem expansion, the solve and the scoring; synchronised at each
-    mark → {phase: median ms over ``reps`` calls, "total": median ms}."""
+def marked_split(call, reps: int) -> tuple:
+    """``reps`` calls of ``call()`` on the card, synchronised at each stage
+    mark → ({phase: median ms, "total": median wall ms}, the marks seen in
+    order).  A ``hetero.py`` mark closes its own phase; the engine's
+    marks add to the phase of :data:`ENGINE_PHASE`."""
     import torch
     from repro_torch.core import energymodel as em
 
-    def once():
-        ms = dict.fromkeys(CODESIGN_PHASES, 0.0)
-        seen = []
-        last = [time.perf_counter()]
+    runs, seqs = [], set()
+    for _ in range(reps):
+        ms, seen = {}, []
+        t_start = time.perf_counter()
+        last = [t_start]
 
         def mark(stage):
             torch.cuda.synchronize()
             now = time.perf_counter()
             dt, last[0] = (now - last[0]) * 1e3, now
-            if stage in CODESIGN_MARKS:
+            if stage in HETERO_MARKS:
                 seen.append(stage)
-                ms[stage] += dt
-            elif seen:
-                ms["pool per-layer call"] += dt
+                key = stage
             else:
-                ms["sweep or stream"] += dt
+                key = ENGINE_PHASE.get(seen[-1] if seen else None, "engine")
+            ms[key] = ms.get(key, 0.0) + dt
 
         em._stage_hook = mark
         try:
             call()
         finally:
             em._stage_hook = None
-        if tuple(seen) != CODESIGN_MARKS:
-            fail(f"co-design marked {seen}, expected {CODESIGN_MARKS}")
-        return ms
-
-    once()
-    runs = [once() for _ in range(reps)]
-    split = {k: statistics.median(r[k] for r in runs)
-             for k in CODESIGN_PHASES}
-    split["total"] = statistics.median(sum(r.values()) for r in runs)
-    return split
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+        ms["after the last mark"] = (end - last[0]) * 1e3
+        ms["total"] = (end - t_start) * 1e3
+        runs.append(ms)
+        seqs.add(tuple(seen))
+    if len(seqs) != 1:
+        fail(f"stage marks differ between calls: {seqs}")
+    split = {k: statistics.median(r.get(k, 0.0) for r in runs)
+             for k in runs[0]}
+    return split, list(seqs.pop())
 
 
 def _max_rel(u, w) -> float:
@@ -1237,7 +1254,9 @@ def codesign_path(dev, card) -> dict:
             ("co_design extended", dense, 2),
             ("co_design_streaming mega", lambda: streamed(mega), 1)):
         w_ms = wall_ms(call, reps=CODESIGN_REPS)
-        split = codesign_split(call)
+        split, marks = marked_split(call, 3)
+        if tuple(marks) != CODESIGN_MARKS:
+            fail(f"co-design marked {marks}, expected {CODESIGN_MARKS}")
         prof = profile_ms(call, steps=steps, match=match)
         times[name] = dict(
             wall_ms=w_ms, split_ms=split, device_ms=prof["device_ms"],
@@ -1262,6 +1281,461 @@ def codesign_path(dev, card) -> dict:
         "chip_mega": md.summary(mega), "score_mega": md.score,
         "times": times}))
     return launches
+
+
+# ---------------------------------------------------------------------------
+# 2. The co-design under a deadline and under faults:
+# score_codesign(deadline=), pareto_codesign, resilience_codesign
+# ---------------------------------------------------------------------------
+
+#: Relative deadline (x each network's sweep-minimum latency) of the
+#: deadline calls, and the degraded PE arrays of the resilience search:
+#: S = 1 + 3 x (1 + 2) = 10 scenarios a chip.
+DEADLINE = 2.0
+DEGRADATIONS = ((2, 2), (4, 4))
+RESIL_SCENARIOS = 1 + 3 * (1 + len(DEGRADATIONS))
+#: Seeded samples held against the scalar oracles, bit for bit.
+SLACK_CELLS = 32
+RESIL_CELLS = 40
+#: Past this many seconds of the phase, the slack calls are timed once.
+DEADLINE_BUDGET_S = 90.0
+def _field_diffs(a, b) -> list:
+    """Fields of two result dataclasses that are not identical (arrays
+    equal element for element, +inf included)."""
+    import dataclasses
+    import numpy as np
+    out = []
+    for f in dataclasses.fields(a):
+        u, w = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(u, np.ndarray) or isinstance(w, np.ndarray):
+            same = (u is None and w is None) or (
+                u is not None and w is not None and u.shape == w.shape
+                and np.array_equal(u, w))
+        else:
+            same = u == w
+        if not same:
+            out.append(f.name)
+    return out
+
+
+def _identical(label, a, b) -> None:
+    diffs = _field_diffs(a, b)
+    if diffs:
+        fail(f"{label}: fields differ: {diffs}")
+    log(f"[2] {label}: every field identical")
+
+
+def _scenario_inputs(p, en_b, rc, deg_layers, c, j, s, lens):
+    """(latencies [T, L_j], energies [T, L_j], counts [T]) of resilience
+    cell (chip c, network j, scenario s), rebuilt from the problem set,
+    its expanded energies ``en_b`` and the degraded pools' per-layer
+    tensors."""
+    b, n_l = c * len(p.names) + j, int(lens[j])
+    lat = p.lat_dense[b, :, :n_l].copy()
+    en = en_b[b, :, :n_l].copy()
+    cnt = p.counts[b].copy()
+    name = rc.scenario_names[s]
+    if s:
+        slot = int(name.split("slot")[1])
+        if name.startswith("core_loss"):
+            cnt[slot] = max(cnt[slot] - 1, 0)
+        else:
+            r, cc = (int(x) for x in
+                     name.split("@")[0].removeprefix("degrade_r").split("c"))
+            e_d, t_d = deg_layers[(r, cc)]
+            row = rc.chip_types[c][slot]
+            lat[slot] = t_d[row, j, :n_l]
+            en[slot] = e_d[row, j, :n_l]
+    return lat, en, cnt
+
+
+def deadline_path(dev, card) -> dict:
+    """The co-design under a deadline and under faults on the card, at
+    extended x 18 (111 chips, 1,998 problems): ``resilience_codesign``
+    with ``DEGRADATIONS`` (a [1998, 10, 3, 251] block, the degraded pools
+    through ``count_layers``), ``score_codesign(deadline=2.0)``,
+    ``pareto_codesign(n_deadlines=8, slack=True)``, and
+    ``pareto_codesign(n_deadlines=12)`` on the streamed mega x 18 problem
+    set; the launch counts set to 0 just before and read just after.
+    The kernels against the plain backend on the degraded pools; every
+    resilience field on both backends; seeded cells against the scalar
+    oracles bit for bit; the Pareto guardrails; timed.  Prints the
+    ``deadline`` line → the path's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (accelerator, energymodel as em, hetero,
+                                  partition, topology)
+    from repro_torch.ft import hw_faults
+    from repro_torch.kernels.count_terms import ops, ref
+
+    t_phase = time.perf_counter()
+    nets = {n: topology.get_network(n) for n in topology.NETWORKS}
+    ext, mega = accelerator.extended_grid(), accelerator.mega_grid()
+    n_net = len(nets)
+    lens = em.network_layer_counts(nets)
+    n_b = CODESIGN_CHIPS * n_net
+    rkw = dict(CODESIGN_KW, degradations=DEGRADATIONS)
+    skw = dict(CODESIGN_KW, chunk_size=STREAM_CHUNK)
+
+    # the path, as a user calls it: the card and the kernels by default
+    counts, calls = {}, {}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = hetero.resilience_codesign(ext, nets, **rkw)
+    counts["resilience_codesign"] = ops.launch_counts()
+    p = hetero.codesign_problems(ext, nets, **CODESIGN_KW)
+    res = partition.batch_schedule_hetero(p.lat_dense, p.counts,
+                                          n_layers=p.n_layers_b)
+    sd = hetero.score_codesign(p, res, m_cores=4, deadline=DEADLINE)
+    ps = hetero.pareto_codesign(p, res, n_deadlines=8, slack=True)
+    counts["score_codesign and pareto_codesign, extended"] = \
+        ops.launch_counts()
+    rd = hetero.resilience_codesign(ext, nets, **rkw, probs=p,
+                                    deadline=DEADLINE)
+    counts["resilience_codesign(deadline=, probs=)"] = ops.launch_counts()
+    pm_probs = hetero.codesign_problems_streaming(mega, nets, **skw)
+    pm = hetero.pareto_codesign(pm_probs, n_deadlines=12)
+    launches = ops.launch_counts()
+    counts["pareto_codesign, streamed mega"] = launches
+    backend = em.last_backend()
+    secs = time.perf_counter() - t0
+    per_call, prev = {}, {k: 0 for k in launches}
+    for call, now in counts.items():
+        per_call[call] = {k: now[k] - prev[k] for k in now}
+        prev = now
+    n_deg = len(DEGRADATIONS)
+    want = {"resilience_codesign": {"count_terms": 1,
+                                    "count_layers": 1 + n_deg},
+            "score_codesign and pareto_codesign, extended": {
+                "count_terms": 1, "count_layers": 1},
+            "resilience_codesign(deadline=, probs=)": {
+                "count_terms": 0, "count_layers": n_deg},
+            "pareto_codesign, streamed mega": {
+                "count_terms": 0,
+                "count_layers": -(-mega.n // STREAM_CHUNK) + 1}}
+    log(f"[2] deadline and fault co-design path in {secs:.1f} s: backend "
+        f"{backend}, launches a call {per_call}")
+    if backend != "cuda":
+        fail(f"deadline path ran on backend {backend!r}")
+    if per_call != want:
+        fail(f"deadline path launches {per_call}, expected {want} (the "
+             f"sweep's count_terms, one count_layers for the pool, one a "
+             f"degraded pool and one a chunk)")
+
+    # shapes and finiteness
+    S = RESIL_SCENARIOS
+    if not (rc.n_chips == CODESIGN_CHIPS and len(rc.scenario_names) == S
+            and rc.bottleneck.shape == (CODESIGN_CHIPS, n_net, S)
+            and rc.pool == p.pool and rd.pool == p.pool
+            and np.isfinite(rc.nominal_score).all()
+            and np.isfinite(sd.score) and sum(sd.core_counts) == 4
+            and ps.slack_energy.shape == (CODESIGN_CHIPS, n_net, 8)
+            and pm.scores.shape == (CODESIGN_CHIPS, 12)):
+        fail(f"deadline path outputs: {rc.n_chips} chips, "
+             f"{len(rc.scenario_names)} scenarios, bottleneck "
+             f"{rc.bottleneck.shape}, pools {rc.pool} {rd.pool} {p.pool}, "
+             f"deadline score {sd.score}, slack {ps.slack_energy.shape}, "
+             f"mega scores {pm.scores.shape}")
+    feas = rc.feasible
+    if not (np.isfinite(rc.bottleneck[feas]).all()
+            and (rc.bottleneck[feas] > 0).all()
+            and np.isinf(rc.energy[~feas]).all()
+            and feas[:, :, 0].all()):
+        fail("resilience cells: a feasible cell is not finite and "
+             "positive, an infeasible one is not +inf, or a nominal "
+             "cell is infeasible")
+
+    # the kernels against the plain versions on the degraded pools (new
+    # inputs of count_layers: PE arrays that are in no grid)
+    lay_np, _ = em._stack_networks(nets)
+    lay = {k: torch.as_tensor(v).to(dev)[None, :] for k, v in lay_np.items()}
+    int_terms = [k for k in range(ops.N_TERMS) if k not in FLOAT_TERMS]
+    pool_grid = ext.take(p.pool)
+    pe = {"pool": [(int(r), int(c)) for r, c in
+                   zip(pool_grid.fields["rows"], pool_grid.fields["cols"])]}
+    deg_layers, deg_checks, deg_cfg = {}, {}, {}
+    for r, c in DEGRADATIONS:
+        deg = hw_faults.degrade_rows(pool_grid, r, c)
+        pe[f"r{r}c{c}"] = [(int(a), int(b)) for a, b in
+                           zip(deg.fields["rows"], deg.fields["cols"])]
+        _, cfg_u, _, _, _ = em._prepare_fields(deg.fields, dev)
+        deg_cfg[(r, c)] = cfg_u
+        out = torch.stack(ops.count_term_layers(cfg_u, lay))
+        torch.cuda.synchronize()
+        want_t = ref.count_term_layers_ref(cfg_u, lay)
+        diff = (out - want_t).abs()
+        rel = float((diff / want_t.abs().clamp_min(1e-300)).max())
+        int_exact = bool(torch.equal(out[int_terms], want_t[int_terms]))
+        zeros = bool(((out == 0) == (want_t == 0)).all())
+        exact = int((out == want_t).sum()) / out.numel()
+        e_c, t_c = em.evaluate_networks(deg, nets, device=dev,
+                                        backend="cuda", per_layer=True)
+        e_t, t_t = em.evaluate_networks(deg, nets, device=dev,
+                                        backend="torch", per_layer=True)
+        same = np.array_equal(e_c, e_t) and np.array_equal(t_c, t_t)
+        deg_layers[(r, c)] = (e_c, t_c)
+        deg_checks[f"r{r}c{c}"] = dict(
+            shape=list(out.shape), max_rel_err=rel,
+            max_abs_err=float(diff.max()), int_terms_exact=int_exact,
+            bit_equal_share=exact, per_layer_identical=same)
+        log(f"[2] count_layers on the pool degraded by r{r}c{c} (PE arrays "
+            f"{pe[f'r{r}c{c}']}) {tuple(out.shape)}: integer terms bit for "
+            f"bit {int_exact}, terms 8 and 13 within {rel:.3e}, zeros match "
+            f"{zeros}, bit-equal share {exact}; per-layer energy and "
+            f"latency cuda = torch {same}")
+        if not (int_exact and rel <= RTOL and zeros and same):
+            fail(f"count_layers on the r{r}c{c} degraded pool disagrees "
+                 f"with its plain version")
+        del out, want_t, diff
+    torch.cuda.empty_cache()
+
+    # the first degraded pool's count_layers launch: events, traced device
+    # time a launch, host µs a call, its plain version, and the bound on
+    # the plain mapping and terms a count row (as dse_path counts them)
+    cfg_u0 = deg_cfg[DEGRADATIONS[0]]
+    n_u, n_l = cfg_u0["rows"].shape[0], lay["m"].shape[1]
+    n_bytes = (len(ops.CFG_COLUMNS) * n_u + 14 * n_u * n_l
+               + len(ops.LAYER_FIELDS) * n_l) * 8
+    flops = plain_ops_per_pair()["count_layers"]["u"] * n_u * n_l
+    b_ms, b_by = bound(n_bytes, flops, FP64_FLOPS)
+
+    def kern():
+        return ops.count_term_layers(cfg_u0, lay)
+
+    prof = profile_ms(kern, steps=50, match=("count_layers_kernel",))
+    enq_us, end_us = host_us(kern, calls=200)
+    deg_time = dict(
+        pool=f"r{DEGRADATIONS[0][0]}c{DEGRADATIONS[0][1]}", n_u=n_u,
+        n_layers=n_l, kernel_ms=cuda_ms(kern),
+        device_ms=prof["matched_per_launch_ms"]["count_layers_kernel"],
+        host_us=enq_us, host_end_us=end_us,
+        plain_ms=cuda_ms(lambda: ref.count_term_layers_ref(cfg_u0, lay)),
+        bound_ms=b_ms, bound_by=b_by, bytes=n_bytes, fp64_ops=flops)
+    log(f"[6] count_layers on the {deg_time['pool']} degraded pool ({n_u} "
+        f"count rows x {n_l} layers): events {deg_time['kernel_ms']:.4f} ms "
+        f"a call, device {deg_time['device_ms']:.4f} ms a launch, host "
+        f"{enq_us:.1f} us a call ({end_us:.1f} to the end), plain "
+        f"{deg_time['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by}) "
+        f"({card})")
+
+    # every resilience field on both backends, the problem sets too
+    p_t = hetero.codesign_problems(ext, nets, **CODESIGN_KW, device=dev,
+                                   backend="torch")
+    if _field_diffs(p, p_t):
+        fail(f"extended problem set: cuda and torch differ in "
+             f"{_field_diffs(p, p_t)}")
+    _identical("resilience_codesign at extended x 18, cuda against torch",
+               rc, hetero.resilience_codesign(ext, nets, **rkw, device=dev,
+                                              backend="torch"))
+    _identical("resilience_codesign(deadline=2.0), cuda against torch", rd,
+               hetero.resilience_codesign(ext, nets, **rkw, device=dev,
+                                          backend="torch", probs=p_t,
+                                          deadline=DEADLINE))
+    pm_t = hetero.pareto_codesign(hetero.codesign_problems_streaming(
+        mega, nets, **skw, device=dev, backend="torch"), n_deadlines=12)
+    _identical("pareto_codesign on the streamed mega x 18 set, cuda "
+               "against torch", pm, pm_t)
+
+    # seeded cells against the scalar oracles, bit for bit
+    rng = np.random.default_rng(0)
+    t_max = p.counts.shape[1]
+    en_b = hetero._expand_pool_tensor(p.e_layer, p.chips, n_net, t_max)
+    moved = np.argwhere(ps.slack_moves > 0)
+    pick = np.concatenate([
+        moved[rng.choice(len(moved), SLACK_CELLS // 2, replace=False)],
+        np.stack([rng.integers(0, CODESIGN_CHIPS, SLACK_CELLS // 2),
+                  rng.integers(0, n_net, SLACK_CELLS // 2),
+                  rng.integers(0, 8, SLACK_CELLS // 2)], axis=1)])
+    best = p.chips.index((tuple(p.pool.index(t) for t in sd.core_types),
+                          tuple(sd.core_counts)))
+    cells = [(int(c), int(j), int(d), ps.deadlines[d]) for c, j, d in pick]
+    cells += [(best, j, -1, DEADLINE) for j in range(n_net)]
+    for c, j, d, rel_dl in cells:
+        b, n_l = c * n_net + j, int(lens[j])
+        o = partition.slack_schedule_oracle(
+            p.lat_dense[b, :, :n_l], en_b[b, :, :n_l], p.counts[b],
+            p.min_latency[j] * rel_dl)
+        if d >= 0:
+            got = (ps.slack_latency[c, j, d], ps.slack_energy[c, j, d],
+                   ps.slack_moves[c, j, d])
+        else:       # score_codesign's winner: feasible, its schedules
+            nm = list(nets)[j]
+            got = (sd.latency[nm], sd.energy[nm], o["n_moves"])
+            if not o["feasible"] or sd.schedules[nm].layer_type != tuple(
+                    int(t) for t in o["layer_type"]):
+                fail(f"score_codesign(deadline=): {nm} is infeasible or "
+                     f"its layer types differ from slack_schedule_oracle's")
+        if not (got[0] == o["bottleneck"] and got[1] == o["energy"]
+                and got[2] == o["n_moves"]):
+            fail(f"slack cell (chip {c}, {list(nets)[j]}, deadline "
+                 f"{rel_dl}): {got} against the oracle's "
+                 f"{(o['bottleneck'], o['energy'], o['n_moves'])}")
+    n_slack = len(cells)
+    log(f"[2] {n_slack} slack cells ({SLACK_CELLS} of pareto_codesign, "
+        f"{SLACK_CELLS // 2} of them with moves; the {n_net} of "
+        f"score_codesign's winner) equal slack_schedule_oracle bit for "
+        f"bit (bottleneck, energy, moves, layer types)")
+
+    valid = np.argwhere(rc.valid | (np.arange(S) == 0)[None, :])
+    r_cells = valid[rng.choice(len(valid), RESIL_CELLS, replace=False)]
+    n_dead = 0
+    for c, s in r_cells:
+        j = int(rng.integers(n_net))
+        lat, en, cnt = _scenario_inputs(p, en_b, rc, deg_layers, int(c), j,
+                                        int(s), lens)
+        if not (cnt > 0).any():
+            n_dead += 1
+            if rc.feasible[c, j, s] or rd.feasible[c, j, s]:
+                fail(f"resilience cell (chip {c}, net {j}, scenario {s}) "
+                     f"has no core left but is reported feasible")
+            continue
+        o = partition.schedule_hetero_oracle(lat, cnt)
+        od = partition.slack_schedule_oracle(lat, en, cnt,
+                                             p.min_latency[j] * DEADLINE)
+        ok = (rc.bottleneck[c, j, s] == o["bottleneck"]
+              and _max_rel(rc.energy[c, j, s],
+                           en[o["layer_type"], np.arange(len(o["layer_type"]))]
+                           .sum()) <= RTOL
+              and rd.bottleneck[c, j, s] == od["bottleneck"]
+              and rd.feasible[c, j, s] == od["feasible"]
+              and rd.slack_moves[c, j, s] == od["n_moves"]
+              and (not od["feasible"] or rd.energy[c, j, s] == od["energy"]))
+        if not ok:
+            fail(f"resilience cell (chip {c}, net {j}, "
+                 f"{rc.scenario_names[s]}): bottleneck "
+                 f"{rc.bottleneck[c, j, s]!r} against "
+                 f"{o['bottleneck']!r}; deadline mode "
+                 f"{rd.bottleneck[c, j, s]!r} {rd.energy[c, j, s]!r} "
+                 f"against {od['bottleneck']!r} {od['energy']!r}")
+    log(f"[2] {RESIL_CELLS} resilience cells ({n_dead} with every core "
+        f"dead, reported infeasible) equal schedule_hetero_oracle and, "
+        f"under deadline {DEADLINE}, slack_schedule_oracle bit for bit")
+
+    # the guardrails: a slack point never costs more than its base point
+    # nor misses its deadline; the fronts hold their winners
+    dl_abs = p.min_latency[:, None] * ps.deadlines[None, :]
+    s_feas = ps.slack_latency <= dl_abs[None]
+    guard = {
+        "slack energy <= base": bool(
+            (ps.slack_energy <= ps.energy[:, :, None] * (1 + 1e-9)).all()),
+        "slack scores <= scores": bool(
+            (ps.slack_scores <= ps.scores * (1 + 1e-9)).all()),
+        "feasible slack cells meet the deadline": bool(
+            np.isfinite(ps.slack_latency[s_feas]).all()),
+        "a slack winner wherever a latency-only one": bool(
+            (ps.best_chip_slack[ps.best_chip >= 0] >= 0).all()),
+        "tightest deadline has a winner": bool(
+            ps.best_chip[0] >= 0 and pm.best_chip[0] >= 0),
+        "loosest deadline admits every chip": bool(
+            np.isfinite(ps.scores[:, -1]).all()
+            and np.isfinite(pm.scores[:, -1]).all()),
+        "resilience front holds best_nominal and best_robust": bool(
+            rc.front[rc.best_nominal] and rc.front[rc.best_robust]
+            and rd.front[rd.best_nominal]),
+        "deadline schedules meet the deadline": all(
+            sd.latency[nm] <= DEADLINE * p.min_latency[j]
+            for j, nm in enumerate(nets)),
+    }
+    for pc in (ps, pm):
+        for d in range(pc.deadlines.size):
+            c = int(pc.best_chip[d])
+            if c >= 0:
+                lim = pc.deadlines[d] * (p.min_latency if pc is ps
+                                         else pm_probs.min_latency)
+                guard.setdefault("winners feasible and least", True)
+                guard["winners feasible and least"] &= bool(
+                    (pc.latency[c] <= lim).all()
+                    and pc.scores[c, d] == pc.scores[:, d].min())
+    n_s, w_s = rc.nominal_score, rc.worst_score
+    for i in np.flatnonzero(rc.front):
+        if ((n_s <= n_s[i]) & (w_s <= w_s[i])
+                & ((n_s < n_s[i]) | (w_s < w_s[i]))).any():
+            guard["resilience front non-dominated"] = False
+    if not all(guard.values()):
+        fail(f"guardrails: {guard}")
+    saved = 100.0 * (1.0 - np.nanmean(np.where(
+        np.isfinite(ps.slack_energy), ps.slack_energy
+        / ps.energy[:, :, None], np.nan)))
+    log(f"[2] guardrails hold: {sorted(guard)}; pareto slack: "
+        f"{int(ps.slack_moves.sum())} moves, mean energy saved "
+        f"{saved:.2f}%; deadline {DEADLINE} chip {sd.summary(ext)} "
+        f"(score {sd.score:.6f}); resilience: best nominal chip "
+        f"{rc.best_nominal} (worst overhead "
+        f"{rc.worst_overhead[rc.best_nominal]:.3f}), best robust "
+        f"{rc.best_robust}, front {int(rc.front.sum())} chips")
+
+    # times: a wall and its split by phase synchronised at each mark
+    # (median of 3; the slack calls once past DEADLINE_BUDGET_S), and one
+    # traced call for the device's busy share
+    def dl_call():
+        q = hetero.codesign_problems(ext, nets, **CODESIGN_KW)
+        return hetero.score_codesign(q, hetero._solve(q), m_cores=4,
+                                     deadline=DEADLINE)
+
+    timed = {
+        "score_codesign(deadline=2.0) extended": (dl_call, True),
+        "pareto_codesign(slack=True) extended": (
+            lambda: hetero.pareto_codesign(
+                hetero.codesign_problems(ext, nets, **CODESIGN_KW),
+                n_deadlines=8, slack=True), True),
+        "pareto_codesign streamed mega": (
+            lambda: hetero.pareto_codesign(
+                hetero.codesign_problems_streaming(mega, nets, **skw),
+                n_deadlines=12), False),
+        "resilience_codesign extended": (
+            lambda: hetero.resilience_codesign(ext, nets, **rkw), False),
+        "resilience_codesign(deadline=2.0) extended": (
+            lambda: hetero.resilience_codesign(ext, nets, **rkw,
+                                               deadline=DEADLINE), True),
+    }
+    spent = time.perf_counter() - t_phase
+    first = {}
+    for name, (call, _) in timed.items():
+        split, marks = marked_split(call, 1)
+        first[name] = (split, marks)
+    est = time.perf_counter() - t_phase + 3 * sum(
+        f[0]["total"] for f in first.values()) / 1e3
+    slack_reps = 3 if est <= DEADLINE_BUDGET_S else 1
+    log(f"[6] deadline phase at {spent:.1f} s before timing, "
+        f"{time.perf_counter() - t_phase:.1f} s after one call each; "
+        f"estimated {est:.1f} s with 3 more: slack calls timed "
+        f"{slack_reps} time(s), the others 3")
+    times = {}
+    for name, (call, slack) in timed.items():
+        reps = slack_reps if slack else 3
+        split, marks = (first[name] if reps == 1
+                        else marked_split(call, reps))
+        prof = profile_ms(call, steps=1, warmup=False,
+                          match=("count_terms_kernel",
+                                 "count_layers_kernel"))
+        times[name] = dict(
+            wall_ms=split["total"], reps=reps, split_ms=split, marks=marks,
+            traced_wall_ms=prof["wall_ms"], device_ms=prof["device_ms"],
+            busy_share=prof["busy_share"],
+            device_launches=prof["kernel_launches"],
+            kernel_ms=prof["matched_ms"])
+        how = "one timing" if reps == 1 else f"median of {reps}"
+        log(f"[6] {name} x 18: wall {split['total']:.2f} ms ({how}, "
+            f"synchronised at each mark); device busy "
+            f"{prof['device_ms']:.3f} ms of a traced {prof['wall_ms']:.2f} "
+            f"ms ({100 * prof['busy_share']:.3f}%), "
+            f"{prof['kernel_launches']:.0f} device launches, kernels "
+            f"{prof['matched_ms']} ({card})")
+        log(f"[6] split of {name} (ms): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in split.items()) + f" ({card})")
+    log("deadline " + json.dumps({
+        "card": card, "kw": CODESIGN_KW, "degradations": DEGRADATIONS,
+        "deadline": DEADLINE, "chips": CODESIGN_CHIPS, "problems": n_b,
+        "scenarios": S, "block": [n_b, S, 3, int(p.lat_dense.shape[2])],
+        "pe_arrays": pe, "launches_per_call": per_call,
+        "degraded_count_layers": deg_checks,
+        "degraded_count_layers_time": deg_time, "slack_cells": n_slack,
+        "resilience_cells": RESIL_CELLS, "guardrails": guard,
+        "slack_moves": int(ps.slack_moves.sum()),
+        "chip_deadline": sd.summary(ext), "score_deadline": sd.score,
+        "best_nominal": rc.best_nominal, "best_robust": rc.best_robust,
+        "phase_s": time.perf_counter() - t_phase, "times": times}))
+    return {k: sum(c[k] for c in per_call.values()) for k in launches}
 
 
 # ---------------------------------------------------------------------------

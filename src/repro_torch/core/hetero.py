@@ -1,7 +1,7 @@
 """Heterogeneous multi-core chip scheme (§IV.A) and its per-layer
 co-design with the layer schedule (§IV.A × §IV.B).
 
-The PyTorch port of ``repro.core.hetero`` up to ``score_codesign``:
+The PyTorch port of ``repro.core.hetero``:
 
 1.  For every network, evaluate the target metric (EDP by default) over the
     whole search space and keep every configuration within a boundary (5%)
@@ -30,7 +30,14 @@ from one sweep (:func:`codesign_problems`) or one chunked
 :func:`_candidate_pool`; one ``per_layer=True`` engine call on the card
 evaluates the pool, and one host call of
 :func:`repro_torch.core.partition.batch_schedule_hetero` solves every
-(chip × network) schedule.
+(chip × network) schedule.  :func:`score_codesign` with ``deadline=``
+and :func:`pareto_codesign` put a latency bound on that block (the
+energy-aware slack schedule of
+:func:`repro_torch.core.partition.batch_slack_schedule`, the Pareto
+scores of :func:`repro_torch.core.partition.batch_pareto_scores`), and
+:func:`resilience_codesign` scores every chip under core losses and
+degraded PE arrays (:mod:`repro_torch.ft.hw_faults`), the degraded pools
+evaluated per layer on the card.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from typing import Dict, List, Mapping, Sequence, Tuple
 import numpy as np
 
 from . import energymodel, partition
+from ..ft import hw_faults
 from .accelerator import GRID_COLUMNS, ConfigGrid
 from .dse import SweepResult, boundary_configs
 from .topology import Layer
@@ -615,33 +623,52 @@ def score_codesign(probs: CoDesignProblems,
     """Step 4 of :func:`co_design`: fold a solved problem set into chip
     scores and materialise the winning chip's schedules.
 
-    ``deadline`` (the energy-aware slack schedule under a relative
-    deadline) needs ``partition.batch_slack_schedule``, which the port
-    does not have yet: any value other than ``None`` raises
-    ``NotImplementedError``."""
-    if deadline is not None:
-        raise NotImplementedError(
-            "score_codesign(deadline=...) needs the deadline-slack solver "
-            "(partition.batch_slack_schedule), which the next slice of the "
-            "port brings; the port has no schedule under a deadline yet")
+    ``deadline`` (RELATIVE, in units of each network's sweep-minimum
+    latency, like :class:`ParetoCoDesign`) switches every schedule to
+    the energy-aware slack pass: layers migrate to lower-energy types as
+    long as the pipeline still meets ``deadline · min_latency[net]``,
+    chips that cannot meet it on every network score +inf, and the
+    winner's materialised schedules are the slack ones.  Raises if NO
+    chip meets the deadline on every network."""
     names, chips, pool = probs.names, probs.chips, probs.pool
     n_net, n_chips = len(names), len(chips)
 
-    bott = res.bottleneck.reshape(n_chips, n_net)
-    energy = _scheduled_energy(probs, res).reshape(n_chips, n_net)
+    sl = None
+    if deadline is None:
+        bott = res.bottleneck.reshape(n_chips, n_net)
+        energy = _scheduled_energy(probs, res).reshape(n_chips, n_net)
+        feas_all = np.ones(n_chips, dtype=bool)
+    else:
+        t_max = probs.counts.shape[1]
+        en_dense = _expand_pool_tensor(probs.e_layer, chips, n_net, t_max)
+        dl_rows = np.tile(probs.min_latency * float(deadline),
+                          n_chips)[:, None]               # [B, 1]
+        sl = partition.batch_slack_schedule(
+            probs.lat_dense, en_dense, probs.counts, dl_rows,
+            n_layers=probs.n_layers_b, base=res)
+        energymodel._stage("slack solve")
+        bott = sl.bottleneck[:, 0].reshape(n_chips, n_net)
+        energy = sl.energy[:, 0].reshape(n_chips, n_net)
+        feas_all = sl.feasible[:, 0].reshape(n_chips, n_net).all(axis=1)
+        if not feas_all.any():
+            raise ValueError(
+                f"no candidate chip meets deadline {deadline} x "
+                "min_latency on every network — loosen the deadline")
     if metric == "energy":
         cell, ref = energy, probs.min_energy
     elif metric == "latency":
         cell, ref = bott, probs.min_latency
     else:
         cell, ref = energy * bott, probs.min_edp
-    chip_scores = (cell / ref[None, :]).mean(axis=1)
+    chip_scores = np.where(feas_all,
+                           (cell / ref[None, :]).mean(axis=1), np.inf)
     best = int(np.argmin(chip_scores))
     homog = min(chip_scores[ci] for ci, (ty, _) in enumerate(chips)
                 if len(ty) == 1)
 
     ty, cn = chips[best]
-    schedules = {nm: res.schedule(best * n_net + j)
+    schedules = {nm: (res.schedule(best * n_net + j) if sl is None
+                      else sl.schedule(best * n_net + j, 0))
                  for j, nm in enumerate(names)}
     out = CoDesign(
         core_types=[pool[p] for p in ty],
@@ -655,6 +682,450 @@ def score_codesign(probs: CoDesignProblems,
         chip_types=[c[0] for c in chips],
         chip_counts=[c[1] for c in chips],
         chip_scores=chip_scores)
+    energymodel._stage("scoring")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Latency-bound Pareto co-design: the same solved (chip × network) problem
+# block, scored against a whole DEADLINE AXIS at once.  A chip that wins on
+# EDP may be useless under a deadline, and the cheapest deadline-feasible
+# chip changes as the bound tightens.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ParetoCoDesign:
+    """Result of the batched latency-bound sweep (:func:`pareto_codesign`).
+
+    ``deadlines`` are RELATIVE: deadline ``d`` for network ``j`` means a
+    pipeline bottleneck of at most ``d · min_latency[j]`` (the network's
+    best single-core latency from the sweep) — absolute bounds would be
+    meaningless across networks whose latencies differ by orders of
+    magnitude.  ``energy`` is normalised by each network's sweep-minimum
+    energy, so chip scores are comparable across networks too."""
+
+    names: List[str]
+    deadlines: np.ndarray          # [D] in units of min_latency per net
+    energy: np.ndarray             # [n_chips, n_net] scheduled energy (raw)
+    latency: np.ndarray            # [n_chips, n_net] pipeline bottleneck
+    norm_energy: np.ndarray        # [n_chips, n_net] / per-net min energy
+    norm_latency: np.ndarray       # [n_chips, n_net] / per-net min latency
+    scores: np.ndarray             # [n_chips, D] mean norm energy, +inf
+    best_chip: np.ndarray          # [D] argmin chip (-1: none feasible)
+    best_chip_net: np.ndarray      # [n_net, D] per-network best chip
+    net_frontier: np.ndarray       # [n_chips, n_net] bool non-dominated
+    chip_frontier: np.ndarray      # [n_chips] bool, network-mean plane
+    pool: List[int]
+    chip_types: List[Tuple[int, ...]]
+    chip_counts: List[Tuple[int, ...]]
+    # Energy-aware slack fields (pareto_codesign(slack=True); else None).
+    # Each (chip, net, deadline) cell is the energy-greedy re-assignment
+    # of partition.batch_slack_schedule — energy never above the
+    # latency-only point, bottleneck never above the deadline.
+    slack_energy: np.ndarray | None = None   # [n_chips, n_net, D] raw
+    slack_latency: np.ndarray | None = None  # [n_chips, n_net, D]
+    norm_slack_energy: np.ndarray | None = None  # / per-net min energy
+    slack_scores: np.ndarray | None = None   # [n_chips, D] mean, +inf
+    best_chip_slack: np.ndarray | None = None    # [D] argmin (-1: none)
+    slack_moves: np.ndarray | None = None    # [n_chips, n_net, D]
+
+    @property
+    def n_chips(self) -> int:
+        return len(self.chip_types)
+
+    def slack_frontier(self, name: str,
+                       deadline_index: int | None = None,
+                       ) -> List[Tuple[int, float, float]]:
+        """One network's non-dominated ``(chip, latency, energy)`` points
+        over the UNION of the latency-only points and the slack points —
+        the widened front.  Falls back to :meth:`frontier` when the sweep
+        ran without ``slack=True``.
+
+        With ``deadline_index`` the slack union is restricted to that one
+        deadline column, making the answer a function of (problem, that
+        deadline) only, whatever other deadlines shared the sweep.
+        ``None`` keeps the all-deadlines union."""
+        if self.slack_energy is None:
+            return self.frontier(name)
+        j = self.names.index(name)
+        n_c = self.n_chips
+        if deadline_index is None:
+            cols = np.arange(self.slack_energy.shape[2])
+        else:
+            cols = np.array([int(deadline_index)])
+        n_d = cols.size
+        lat = np.concatenate([self.latency[:, j],
+                              self.slack_latency[:, j, cols].ravel()])
+        en = np.concatenate([self.energy[:, j],
+                             self.slack_energy[:, j, cols].ravel()])
+        chip = np.concatenate([np.arange(n_c),
+                               np.repeat(np.arange(n_c), n_d)])
+        ok = np.isfinite(lat) & np.isfinite(en)
+        lat, en, chip = lat[ok], en[ok], chip[ok]
+        dom = ((lat[None, :] <= lat[:, None]) & (en[None, :] <= en[:, None])
+               & ((lat[None, :] < lat[:, None]) | (en[None, :] < en[:, None])))
+        keep = np.flatnonzero(~dom.any(axis=1))
+        pts = sorted({(float(lat[i]), float(en[i]), int(chip[i]))
+                      for i in keep})
+        return [(c, l, e) for l, e, c in pts]
+
+    def frontier(self, name: str) -> List[Tuple[int, float, float]]:
+        """One network's non-dominated ``(chip index, latency, energy)``
+        points, fastest first."""
+        j = self.names.index(name)
+        idx = np.flatnonzero(self.net_frontier[:, j])
+        order = np.lexsort((self.energy[idx, j], self.latency[idx, j]))
+        return [(int(c), float(self.latency[c, j]), float(self.energy[c, j]))
+                for c in idx[order]]
+
+    def chip_summary(self, ci: int, grid: ConfigGrid) -> str:
+        ty, cn = self.chip_types[ci], self.chip_counts[ci]
+        return " + ".join(
+            f"{c}x {grid.config_at(self.pool[p]).label()}"
+            for p, c in zip(ty, cn))
+
+
+def pareto_codesign(probs: CoDesignProblems,
+                    res: "partition.BatchHeteroResult | None" = None,
+                    *,
+                    deadlines=None,
+                    n_deadlines: int = 8,
+                    points: Tuple[np.ndarray, np.ndarray] | None = None,
+                    slack: bool = False) -> ParetoCoDesign:
+    """Latency-bound Pareto sweep over a co-design problem set.
+
+    One :func:`repro_torch.core.partition.batch_schedule_hetero` solve
+    (reused via ``res=`` if the caller already has it) gives every
+    (chip candidate × network) pair its scheduled (energy, bottleneck)
+    point; ONE :func:`repro_torch.core.partition.batch_pareto_scores`
+    call then scores every chip against EVERY deadline — infeasible
+    schedules masked to +inf — and extracts the per-deadline winners
+    plus both non-dominated (energy, latency) fronts.  No python loop
+    over deadlines anywhere.  ``deadlines`` defaults to ``n_deadlines``
+    points spanning the observed normalised-bottleneck range (so the
+    tightest grid point is exactly reachable and the loosest admits
+    every chip); the problem set may come from :func:`codesign_problems`
+    or :func:`codesign_problems_streaming` — the sweep is agnostic.
+
+    Re-sweeping the SAME problem set against a new deadline grid is the
+    hot re-run path: pass ``points=(energy, latency)`` from a previous
+    :class:`ParetoCoDesign` (both [n_chips, n_net], raw) and the solve
+    and energy attribution are skipped entirely — only the deadline
+    scoring runs (``slack=True`` still needs the solve, so it re-solves
+    when ``res`` is absent).
+
+    ``slack=True`` additionally runs the energy-aware deadline-slack
+    pass (:func:`repro_torch.core.partition.batch_slack_schedule`) over
+    the SAME (chip × network × deadline) axes in one more call and fills
+    the ``slack_*`` fields: per-deadline energy-optimal points that
+    weakly dominate the latency-only front (asserted — a slack point can
+    never cost more energy than its base point, nor exceed its
+    deadline)."""
+    names = probs.names
+    n_net, n_chips = len(names), len(probs.chips)
+    if points is not None:
+        energy = np.asarray(points[0], dtype=np.float64)
+        lat = np.asarray(points[1], dtype=np.float64)
+        if energy.shape != (n_chips, n_net):
+            raise ValueError(f"points must be [{n_chips}, {n_net}], got "
+                             f"{energy.shape}")
+        if slack and res is None:
+            res = _solve(probs)
+    else:
+        if res is None:
+            res = _solve(probs)
+        energy = _scheduled_energy(probs, res).reshape(n_chips, n_net)
+        lat = res.bottleneck.reshape(n_chips, n_net)
+    norm_e = energy / probs.min_energy[None, :]
+    norm_l = lat / probs.min_latency[None, :]
+    if deadlines is None:
+        # tightest: the best chip's worst-network bottleneck (the first
+        # deadline some chip meets for EVERY network); loosest: every
+        # chip feasible everywhere.  Feasibility is re-checked in
+        # ABSOLUTE space (min_latency · d), and the normalise→rescale
+        # round trip can round 1 ulp below the defining latency — widen
+        # both endpoints by a relative epsilon so the invariant survives
+        deadlines = np.linspace(norm_l.max(axis=1).min(), norm_l.max(),
+                                int(n_deadlines)) * (1.0 + 1e-12)
+    deadlines = np.asarray(deadlines, dtype=np.float64)
+    dl_abs = probs.min_latency[:, None] * deadlines[None, :]   # [N, D]
+
+    _, scores, best, best_net, net_front, chip_front = \
+        partition.batch_pareto_scores(norm_e, lat, dl_abs,
+                                      norm_latency=norm_l)
+    energymodel._stage("pareto scoring")
+
+    slack_kw: Dict[str, np.ndarray] = {}
+    if slack:
+        t_max = probs.counts.shape[1]
+        en_dense = _expand_pool_tensor(probs.e_layer, probs.chips, n_net,
+                                       t_max)
+        dl_prob = np.tile(dl_abs, (n_chips, 1))           # [B, D] rows
+        sl = partition.batch_slack_schedule(
+            probs.lat_dense, en_dense, probs.counts, dl_prob,
+            n_layers=probs.n_layers_b, base=res)
+        n_d = dl_prob.shape[1]
+        s_en = sl.energy.reshape(n_chips, n_net, n_d)
+        s_lat = sl.bottleneck.reshape(n_chips, n_net, n_d)
+        s_feas = sl.feasible.reshape(n_chips, n_net, n_d)
+        # guardrail (the frontier must WIDEN, never regress): each slack
+        # point spends no more energy than its latency-only base point
+        # (rtol: the sequential slack energy sum vs the pairwise base
+        # attribution differ by ulps) and meets its deadline bit-exactly
+        assert (s_en <= energy[:, :, None] * (1.0 + 1e-9)).all(), \
+            "slack pass increased energy — dominance guardrail violated"
+        assert np.where(s_feas, s_lat, 0.0).max() < np.inf and \
+            (np.where(s_feas, s_lat, -np.inf)
+             <= dl_abs[None, :, :]).all(), \
+            "slack schedule exceeds its deadline — guardrail violated"
+        norm_se = s_en / probs.min_energy[None, :, None]
+        feas_all = s_feas.all(axis=1)                     # [n_chips, D]
+        with np.errstate(invalid="ignore"):
+            s_scores = np.where(feas_all, norm_se.mean(axis=1), np.inf)
+        assert (s_scores <= scores * (1.0 + 1e-9)).all(), \
+            "slack scores regressed vs latency-only scores"
+        any_feas = np.isfinite(s_scores).any(axis=0)
+        s_best = np.where(any_feas, np.argmin(s_scores, axis=0), -1)
+        slack_kw = dict(
+            slack_energy=s_en, slack_latency=s_lat,
+            norm_slack_energy=norm_se, slack_scores=s_scores,
+            best_chip_slack=s_best,
+            slack_moves=sl.n_moves.reshape(n_chips, n_net, n_d))
+        energymodel._stage("slack solve")
+
+    return ParetoCoDesign(
+        names=list(names), deadlines=deadlines,
+        energy=energy, latency=lat,
+        norm_energy=norm_e, norm_latency=norm_l,
+        scores=scores, best_chip=best, best_chip_net=best_net,
+        net_frontier=net_front, chip_frontier=chip_front,
+        pool=probs.pool,
+        chip_types=[c[0] for c in probs.chips],
+        chip_counts=[c[1] for c in probs.chips],
+        **slack_kw)
+
+
+# ---------------------------------------------------------------------------
+# Resilience-aware co-design: the same candidate-chip enumeration, scored by
+# nominal metric AND by what happens when the hardware breaks.  Every chip ×
+# network × fault-scenario re-schedule is solved by ONE
+# batch_schedule_hetero(strict=False) call over a 4-D [B, S, T, L] block —
+# scenario 0 is the fault-free chip, the rest are slot-parameterised faults
+# (core loss / degraded PE arrays per type slot).  The degraded pools are
+# evaluated per layer by the engine on its device; the solve is host numpy.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ResilienceCoDesign:
+    """Result of :func:`resilience_codesign`.
+
+    Scores follow :func:`score_codesign`'s convention (per-network
+    scheduled metric normalised by the sweep minimum, averaged over
+    networks); ``+inf`` marks a scenario that killed every core of a
+    chip (infeasible — reported, never raised).  The ``front`` is the
+    weak-dominance front on the (nominal, worst-case) plane: it always
+    contains the nominal-only winner, and typically also chips that give
+    up a little nominal score for a much better worst case."""
+
+    names: List[str]
+    pool: List[int]
+    chip_types: List[Tuple[int, ...]]
+    chip_counts: List[Tuple[int, ...]]
+    scenario_names: List[str]          # [S], "nominal" first
+    degradations: List[Tuple[int, int]]
+    valid: np.ndarray                  # [n_chips, S] scenario applies
+    feasible: np.ndarray               # [n_chips, n_net, S]
+    bottleneck: np.ndarray             # [n_chips, n_net, S] (+inf dead)
+    energy: np.ndarray                 # [n_chips, n_net, S] (+inf dead)
+    scores: np.ndarray                 # [n_chips, S] mean norm metric
+    nominal_score: np.ndarray          # [n_chips] == scores[:, 0]
+    worst_score: np.ndarray            # [n_chips] max over valid faults
+    expected_score: np.ndarray         # [n_chips] mean over valid faults
+    front: np.ndarray                  # [n_chips] bool (nominal, worst)
+    best_nominal: int                  # argmin nominal_score
+    best_robust: int                   # lexicographic (worst, nominal) min
+    metric: str
+    # deadline mode (resilience_codesign(deadline=...)): every cell above
+    # reflects the ENERGY-AWARE slack schedule under that (relative)
+    # deadline — feasible means "meets the deadline", energy is +inf
+    # where it cannot, and slack_moves counts accepted energy moves
+    deadline: float | None = None
+    slack_moves: np.ndarray | None = None   # [n_chips, n_net, S]
+
+    @property
+    def n_chips(self) -> int:
+        return len(self.chip_types)
+
+    @property
+    def worst_overhead(self) -> np.ndarray:
+        """[n_chips] worst-case score relative to the chip's own nominal."""
+        return self.worst_score / self.nominal_score
+
+    def frontier(self) -> List[Tuple[int, float, float]]:
+        """Front chips as ``(chip index, nominal, worst)``, best nominal
+        first."""
+        idx = np.flatnonzero(self.front)
+        order = np.lexsort((self.worst_score[idx],
+                            self.nominal_score[idx]))
+        return [(int(c), float(self.nominal_score[c]),
+                 float(self.worst_score[c])) for c in idx[order]]
+
+
+def resilience_codesign(grid: ConfigGrid,
+                        networks: Mapping[str, Sequence[Layer]],
+                        m_cores: int = 4,
+                        *,
+                        max_types: int = 3,
+                        pool_size: int = 6,
+                        bound: float = 0.05,
+                        metric: str = "edp",
+                        device=None,
+                        backend: str | None = None,
+                        degradations: Sequence[Tuple[int, int]] = ((4, 4),),
+                        probs: CoDesignProblems | None = None,
+                        deadline: float | None = None,
+                        ) -> ResilienceCoDesign:
+    """Co-design under hardware faults: every candidate chip is scored by
+    its nominal metric AND by its worst-case / expected metric when a
+    core dies or a PE array degrades.
+
+    The scenario set is slot-parameterised so all chips share one
+    scenario axis: scenario 0 is nominal; then one whole-core-loss
+    scenario per type slot (that slot's count decrements — a single-core
+    single-type chip becomes INFEASIBLE, scored +inf); then, for each
+    ``(rows_lost, cols_lost)`` in ``degradations``, one scenario per
+    type slot where that slot's pool row is replaced by its degraded
+    variant (shrunk ``rows``/``cols``, re-evaluated per layer by one
+    ``per_layer=True`` engine call on ``device`` and ``backend`` — the
+    layers re-balance onto the slower arrays).  Scenarios that name a
+    slot a chip does not use are marked invalid for that chip and
+    excluded from its worst/expected reductions.
+
+    ONE ``batch_schedule_hetero(strict=False)`` call solves the whole
+    ``[chips · networks, scenarios]`` block on the host; the returned
+    :class:`ResilienceCoDesign` carries the (nominal, worst-case)
+    weak-dominance front, which by construction contains the
+    nominal-only winner (nothing can dominate it on the nominal axis).
+    Pass ``probs=`` to reuse an existing problem set; it must come from
+    this ``grid``/``networks``.  ``device`` (default: the card; raises
+    without one) and ``backend`` act as in
+    :func:`repro_torch.core.energymodel.evaluate_networks`.
+
+    ``deadline`` (RELATIVE, x each network's sweep-minimum latency)
+    switches every scenario cell to the energy-aware slack schedule of
+    :func:`repro_torch.core.partition.batch_slack_schedule` — the energy
+    the chip spends under each fault while still meeting the deadline;
+    cells that cannot meet it are infeasible (+inf energy/score)."""
+    if probs is None:
+        probs = codesign_problems(grid, networks, m_cores,
+                                  max_types=max_types, pool_size=pool_size,
+                                  bound=bound, metric=metric,
+                                  device=device, backend=backend)
+    names, chips = probs.names, probs.chips
+    n_net, n_chips = len(names), len(chips)
+    B = n_chips * n_net
+    t_max = probs.counts.shape[1]
+    n_layer = probs.lat_dense.shape[2]
+    degradations = [(int(r), int(c)) for r, c in degradations]
+    n_deg = len(degradations)
+    S = 1 + t_max * (1 + n_deg)
+
+    lat4 = np.repeat(probs.lat_dense[:, None], S, axis=1)
+    e4 = np.repeat(
+        _expand_pool_tensor(probs.e_layer, chips, n_net,
+                            t_max)[:, None], S, axis=1)
+    counts4 = np.repeat(probs.counts[:, None], S, axis=1)
+
+    scen_names = ["nominal"]
+    n_used = np.asarray([len(ty) for ty, _ in chips])
+    valid = np.zeros((n_chips, S), dtype=bool)
+    slot_valid = (np.arange(t_max)[None, :] < n_used[:, None])
+    for s in range(t_max):
+        scen_names.append(f"core_loss@slot{s}")
+        counts4[:, 1 + s, s] = np.maximum(counts4[:, 1 + s, s] - 1, 0)
+        valid[:, 1 + s] = slot_valid[:, s]
+    for di, (r, c) in enumerate(degradations):
+        deg_grid = hw_faults.degrade_rows(grid.take(probs.pool), r, c)
+        e_d, t_d = energymodel.evaluate_networks(
+            deg_grid, networks, device=device, backend=backend,
+            per_layer=True)
+        lat_deg = _expand_pool_tensor(t_d, chips, n_net, t_max)
+        en_deg = _expand_pool_tensor(e_d, chips, n_net, t_max)
+        for s in range(t_max):
+            sidx = 1 + t_max * (1 + di) + s
+            scen_names.append(f"degrade_r{r}c{c}@slot{s}")
+            lat4[:, sidx, s, :] = lat_deg[:, s, :]
+            e4[:, sidx, s, :] = en_deg[:, s, :]
+            valid[:, sidx] = slot_valid[:, s]
+    energymodel._stage("degraded evaluation")
+
+    labels = [f"{names[b % n_net]}@chip{b // n_net}:{scen_names[s]}"
+              for b in range(B) for s in range(S)]
+    res = partition.batch_schedule_hetero(
+        lat4, counts4, n_layers=probs.n_layers_b, strict=False,
+        labels=labels)
+    energymodel._stage("scenario solve")
+
+    slack_moves = None
+    if deadline is None:
+        tt = res.layer_type[:, :n_layer]
+        energy = np.take_along_axis(
+            e4.reshape(B * S, t_max, n_layer),
+            tt[:, None, :], axis=1)[:, 0, :].sum(-1)
+        feas = res.feasible.reshape(n_chips, n_net, S)
+        bott = res.bottleneck.reshape(n_chips, n_net, S)
+        energy = np.where(feas, energy.reshape(n_chips, n_net, S), np.inf)
+    else:
+        # per-row absolute deadline: flat row b·S + s belongs to network
+        # (row // S) % n_net
+        dl_rows = np.tile(np.repeat(probs.min_latency * float(deadline),
+                                    S), n_chips)[:, None]
+        sl = partition.batch_slack_schedule(
+            lat4, e4, counts4, dl_rows, n_layers=probs.n_layers_b,
+            base=res)
+        energymodel._stage("slack solve")
+        feas = sl.feasible[:, 0].reshape(n_chips, n_net, S)
+        bott = sl.bottleneck[:, 0].reshape(n_chips, n_net, S)
+        energy = np.where(feas, sl.energy[:, 0].reshape(n_chips, n_net, S),
+                          np.inf)
+        slack_moves = sl.n_moves[:, 0].reshape(n_chips, n_net, S)
+
+    if metric == "energy":
+        cell, ref = energy, probs.min_energy
+    elif metric == "latency":
+        cell, ref = np.where(feas, bott, np.inf), probs.min_latency
+    else:
+        cell, ref = energy * np.where(feas, bott, 1.0), probs.min_edp
+    scores = (cell / ref[None, :, None]).mean(axis=1)       # [n_chips, S]
+
+    fault = valid.copy()
+    fault[:, 0] = False
+    worst = np.where(fault, scores, -np.inf).max(axis=1)
+    with np.errstate(invalid="ignore"):
+        expected = (np.where(fault, scores, 0.0).sum(axis=1)
+                    / np.maximum(fault.sum(axis=1), 1))
+    nominal = scores[:, 0]
+
+    a1, a2 = nominal[:, None], nominal[None, :]
+    b1, b2 = worst[:, None], worst[None, :]
+    dom = (a2 <= a1) & (b2 <= b1) & ((a2 < a1) | (b2 < b1))
+    front = ~dom.any(axis=1)
+    best_nominal = int(np.argmin(nominal))
+    best_robust = int(np.lexsort((nominal, worst))[0])
+    out = ResilienceCoDesign(
+        names=list(names), pool=list(probs.pool),
+        chip_types=[c[0] for c in chips],
+        chip_counts=[c[1] for c in chips],
+        scenario_names=scen_names, degradations=degradations,
+        valid=valid, feasible=feas, bottleneck=bott, energy=energy,
+        scores=scores, nominal_score=nominal, worst_score=worst,
+        expected_score=expected, front=front,
+        best_nominal=best_nominal, best_robust=best_robust,
+        metric=metric,
+        deadline=None if deadline is None else float(deadline),
+        slack_moves=slack_moves)
     energymodel._stage("scoring")
     return out
 

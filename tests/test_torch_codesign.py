@@ -228,13 +228,44 @@ def test_streaming_value_errors(match, small_grids, port_nets,
         hetero.codesign_problems_streaming(grid, port_nets, 3, **kw)
 
 
-def test_deadline_not_ported_raises(small_grids, port_nets):
-    probs = hetero.codesign_problems(small_grids[1], port_nets, 2,
-                                     max_types=2, pool_size=3, device="cpu")
-    res = partition.batch_schedule_hetero(probs.lat_dense, probs.counts,
-                                          n_layers=probs.n_layers_b)
-    with pytest.raises(NotImplementedError, match="batch_slack_schedule"):
-        hetero.score_codesign(probs, res, m_cores=2, deadline=1.5)
+@pytest.mark.parametrize("deadline", [1.2, 2.0, 1e-3])
+def test_score_codesign_deadline_equals_reference(deadline, small_grids,
+                                                  ref_nets, port_nets,
+                                                  monkeypatch):
+    """``score_codesign(deadline=)`` (the energy-aware slack schedules)
+    equals the reference's; a deadline no chip meets raises the same
+    ``ValueError`` in both.  The reference's call resolves its slack
+    solver's backend itself, so its jax probe is switched off here."""
+    from repro.core import partition as ref_part
+    monkeypatch.setattr(ref_part, "jax_available", lambda: False)
+    kw = dict(max_types=2, pool_size=3)
+    want_p = ref_het.codesign_problems(small_grids[0], ref_nets, 2, **kw,
+                                       **REF)
+    got_p = hetero.codesign_problems(small_grids[1], port_nets, 2, **kw,
+                                     device="cpu")
+    want_r = ref_part.batch_schedule_hetero(
+        want_p.lat_dense, want_p.counts, n_layers=want_p.n_layers_b,
+        use_jax=False)
+    got_r = partition.batch_schedule_hetero(got_p.lat_dense, got_p.counts,
+                                            n_layers=got_p.n_layers_b)
+    if deadline < 1.0:
+        msgs = []
+        for mod, p, r in ((ref_het, want_p, want_r),
+                          (hetero, got_p, got_r)):
+            with pytest.raises(ValueError, match="loosen the deadline") as e:
+                mod.score_codesign(p, r, m_cores=2, deadline=deadline)
+            msgs.append(str(e.value))
+        assert msgs[0] == msgs[1]
+        return
+    want = ref_het.score_codesign(want_p, want_r, m_cores=2,
+                                  deadline=deadline)
+    got = hetero.score_codesign(got_p, got_r, m_cores=2, deadline=deadline)
+    assert_codesign_equal(got, want)
+    for nm, s in got.schedules.items():
+        j = got_p.names.index(nm)
+        assert s.bottleneck <= deadline * got_p.min_latency[j]
+    plain = hetero.score_codesign(got_p, got_r, m_cores=2)
+    assert got.energy != plain.energy
 
 
 def test_no_fallback_without_a_card(small_grids, port_nets):
