@@ -27,7 +27,14 @@ Phases, each fatal on any error:
    ``score_codesign(deadline=2.0)``, ``pareto_codesign(slack=True)`` and
    the streamed mega ``pareto_codesign``; seeded cells against
    ``slack_schedule_oracle`` and ``schedule_hetero_oracle`` bit for bit;
-   the Pareto guardrails and the resilience front);
+   the Pareto guardrails and the resilience front); and the
+   fault-tolerant DSE service (``DSEService`` at extended x 18 with its
+   defaults: the launcher's seeded mix on the kernels and on the plain
+   backend, against a direct ``stream_layer_topk``; three seeded chaos
+   runs with every chunk shadow-checked; a process kill in a second
+   metric's stream and the restarts' journal replay; a core loss and a
+   degraded PE array rescheduled on both backends; the store's scrub of
+   a poisoned payload; ``shard=True`` against the service's stream);
 3. LM kernels: hold flash attention and RMSNorm against their plain
    versions on the card (f32 2e-5, bf16 2e-2) at the serve paths' decode
    shapes and at D 128 (split edges, a window, causal rows at an offset)
@@ -583,6 +590,7 @@ def dse_path(dev, card, built) -> list:
     stream_launches = dse_stream(dev, card, nets, chip)
     codesign_launches = codesign_path(dev, card)
     deadline_launches = deadline_path(dev, card)
+    service_launches = service_path(dev, card)
 
     # times: CUDA events around a call, the traced device time of a launch,
     # the host µs of a call; the bound on the operations of
@@ -663,7 +671,8 @@ def dse_path(dev, card, built) -> list:
             replaces=REPLACES[kname],
             launches=(launches[kname] + stream_launches[kname]
                       + codesign_launches[kname]
-                      + deadline_launches[kname]),
+                      + deadline_launches[kname]
+                      + service_launches[kname]),
             max_abs_err=max(g["max_abs_err"] for g in per_grid[kname].values()),
             max_rel_err=max(g["max_rel_err"] for g in per_grid[kname].values()),
             ms=ext_r["kernel_ms"], device_ms=ext_r["device_ms"],
@@ -1736,6 +1745,353 @@ def deadline_path(dev, card) -> dict:
         "best_nominal": rc.best_nominal, "best_robust": rc.best_robust,
         "phase_s": time.perf_counter() - t_phase, "times": times}))
     return {k: sum(c[k] for c in per_call.values()) for k in launches}
+
+
+# ---------------------------------------------------------------------------
+# 2. The DSE service: DSEService on the card at extended x 18
+# ---------------------------------------------------------------------------
+
+#: The launcher's seeded mix (``serve_dse.seeded_mix``): 12 requests, seed 0.
+SERVICE_REQUESTS = 12
+SERVICE_SEED = 0
+#: The service's defaults: pool 4, <= 2 types, top-k 8, chunks of 1,024
+#: (6 exact chunks of extended, 1 of its stride-8 subsample).
+SERVICE_CHUNK = 1024
+CHAOS_SEEDS = (0, 1, 2)
+#: The process kill: the middle chunk of the exact stream of a second
+#: metric, after the mix is answered; checkpoints spilled after every
+#: chunk, so the restart replays the unanswered and resumes at chunk 3.
+SERVICE_KILL_AT = 3
+SERVICE_KILL_METRIC = "energy"
+
+
+def service_path(dev, card) -> dict:
+    """The fault-tolerant DSE service on the card at extended x 18 with
+    its defaults (``SERVICE_CHUNK``, pool 4, <= 2 types, top-k 8): the
+    launcher's seeded mix drained on the kernels with the launch counts
+    set to 0 just before and read just after, then on the plain backend
+    (equal answers: ints exact, floats within 1e-12) and against a direct
+    ``stream_layer_topk`` with ``shard=True`` (every field bit for bit
+    against the service's stream); three seeded chaos runs (every chunk
+    shadow-checked, each perturbation caught, answers bit-identical to the
+    clean run); a ``ProcessKill`` in a second metric's stream after the
+    mix is answered, and two restarts over a state directory under
+    ``build/`` (only the unanswered replayed, their answers bit-identical,
+    the second restart replays nothing); two fault events, a core loss
+    and a degraded PE array, rescheduled in one coalesced batch (one
+    ``count_layers`` launch on the union grid) and held against the same
+    events on the plain backend; the store's scrub, clean and then with
+    one stream payload poisoned self-consistently.  Times the cold
+    and warm queries, the reschedule, the chaos and restart drains and
+    the verifier's cost a chunk, splits a cold drain by stage mark and
+    traces one.  Prints the ``dse_service`` line → the launches of the
+    clean drain and the reschedule."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.core import accelerator, energymodel as em, topology
+    from repro_torch.ft import faults, hw_faults, verify
+    from repro_torch.kernels.count_terms import ops
+    from repro_torch.launch import serve_dse
+    from repro_torch.serving import DSEService
+    from repro_torch.serving.dse_service import answer_diffs
+
+    t_phase = time.perf_counter()
+    nets = {n: topology.get_network(n) for n in topology.NETWORKS}
+    ext = accelerator.extended_grid()
+    n_chunks = -(-ext.n // SERVICE_CHUNK)
+    mix = serve_dse.seeded_mix(list(nets), SERVICE_REQUESTS, SERVICE_SEED)
+
+    def make(backend="cuda", **kw):
+        return DSEService(ext, nets, device=dev, backend=backend,
+                          chunk_size=SERVICE_CHUNK, **kw)
+
+    def drain(svc, queries=mix):
+        for q in queries:
+            if not svc.submit(**q).accepted:
+                fail(f"service rejected {q}")
+        t0 = time.perf_counter()
+        out, drained = svc.run_until_drained()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        if not drained:
+            fail(f"service did not drain: {svc.health()}")
+        return sorted(out, key=lambda r: r.rid), wall
+
+    def check_same(label, got, want, rtol=0.0):
+        """Two drains of the mix, in submission order: the same kinds and
+        flags, answers bit for bit (``rtol=0``) or within ``rtol``."""
+        diffs = []
+        for g, w in zip(got, want):
+            if (g.kind, g.ok, g.degraded) != (w.kind, w.ok, w.degraded):
+                diffs.append(f"rid {g.rid}: kind, ok or degraded differ")
+            else:
+                diffs += answer_diffs(g.answer, w.answer, rtol,
+                                      f"rid {g.rid}")
+        if len(got) != len(want) or diffs:
+            fail(f"{label}: {len(got)} vs {len(want)} answers; {diffs[:5]}")
+
+    # cold single queries on fresh services (the kernels are built)
+    walls = {}
+    for kind, q in (("best_config", dict(kind="best_config")),
+                    ("best_chip", dict(kind="best_chip", deadline=2.0))):
+        (r,), walls[f"cold_{kind}_ms"] = drain(make(), [q])
+        if not (r.ok and not r.degraded):
+            fail(f"cold {kind}: ok={r.ok} degraded={r.degraded} "
+                 f"{r.error}")
+
+    # 1. the clean drain, as a user calls it: the card and the kernels
+    svc = make()
+    ops.reset_launch_counts()
+    clean, walls["cold_drain_ms"] = drain(svc)
+    launches = ops.launch_counts()
+    h = svc.health()
+    log(f"[2] service: {len(clean)} answers of the seeded mix in "
+        f"{walls['cold_drain_ms']:.1f} ms on backend "
+        f"{em.last_backend()}, launches {launches}")
+    if not all(r.ok and not r.degraded for r in clean) or h["errors"] or \
+            h["faults"] or h["backend_fallbacks"]:
+        fail(f"clean drain: {[(r.rid, r.ok, r.error) for r in clean]}, "
+             f"health {h}")
+    # a launch a chunk of the exact and the subsampled stream, and one a
+    # tier's candidate pool where the mix asks for chips
+    chips = any(q["kind"] != "best_config" for q in mix)
+    want_layers = n_chunks + 1 + (2 if chips else 0)
+    if em.last_backend() != "cuda" or launches["count_terms"] != 0 or \
+            launches["count_layers"] != want_layers:
+        fail(f"clean drain launches {launches} on {em.last_backend()}, "
+             f"expected count_layers {want_layers} and no count_terms")
+    warm, walls["warm_drain_ms"] = drain(svc)
+    check_same("warm answers against the cold ones", warm, clean)
+    walls["warm_query_ms"] = walls["warm_drain_ms"] / len(warm)
+    # a second metric's queries, answered by a stream of their own: the
+    # clean answers of the kill and restart below
+    extra = [dict(kind="best_config", metric=SERVICE_KILL_METRIC),
+             dict(kind="best_chip", metric=SERVICE_KILL_METRIC,
+                  network=next(iter(nets)), deadline=2.0)]
+    extra_clean, _ = drain(svc, extra)
+
+    plain, walls["plain_cold_drain_ms"] = drain(make("torch"))
+    check_same("cuda against torch on the card", clean, plain, RTOL)
+    # shard=True on the one card: the unsharded stream, every field bit
+    # for bit against the stream the service (shard=False) folded
+    direct = em.stream_layer_topk(ext, nets, device=dev, topk=8,
+                                  bound=0.05, chunk_size=SERVICE_CHUNK,
+                                  shard=True)
+    shard = differing(direct, svc._streams[("exact", "edp")])
+    if shard:
+        fail(f"stream_layer_topk(shard=True) differs from the service's "
+             f"stream in {shard}")
+    cfg = next(r for r in clean if r.kind == "best_config")
+    got = {nm: (a["idx"], a["metric"], a["energy"], a["latency"])
+           for nm, a in cfg.answer.items()}
+    want = {nm: (int(direct.argmin[j]), float(direct.min_metric[j]),
+                 float(direct.min_energy[j]), float(direct.min_latency[j]))
+            for j, nm in enumerate(nets)}
+    if got != want:
+        fail(f"best_config against a direct stream_layer_topk: {got} vs "
+             f"{want}")
+    log("[2] service: cuda = torch (ints exact, floats within 1e-12); "
+        "a direct stream_layer_topk(shard=True) = the service's stream "
+        "and its best_config, bit for bit")
+
+    # 2. chaos: every chunk shadow-checked, seeded faults; the retry
+    # budget of the reference's chaos tests, so a chunk that fails, then
+    # is corrupted, then perturbed still converges
+    chaos = {}
+    for seed in CHAOS_SEEDS:
+        csvc = make(verify_fraction=1.0, max_retries=30, backoff_s=1e-4)
+        plan = faults.FaultPlan.random(seed, n_chunks, p_perturb=0.25)
+        with faults.inject_chunk_faults(plan):
+            out, wall = drain(csvc)
+        ch = csvc.health()
+        kinds = [k for _, k in plan.fired]
+        n_pert = kinds.count("perturb")
+        check_same(f"chaos seed {seed} against the clean run", out, clean)
+        if ch["shadow_mismatches"] < n_pert or ch["errors"] or \
+                ch["backend_fallbacks"]:
+            fail(f"chaos seed {seed}: fired {plan.fired}, health {ch}")
+        chaos[seed] = dict(wall_ms=wall, fired=plan.fired,
+                           perturbations=n_pert,
+                           **{k: ch[k] for k in (
+                               "faults", "retries", "resumes",
+                               "shadow_checks", "shadow_mismatches",
+                               "invariant_checks", "invariant_violations",
+                               "backend_fallbacks")})
+        log(f"[2] service chaos seed {seed}: {wall:.1f} ms, fired "
+            f"{plan.fired}; {chaos[seed]}")
+
+    # 3. kill and restart over a state directory under build/
+    sd = Path(__file__).resolve().parent / "build" / "service_state"
+    shutil.rmtree(sd, ignore_errors=True)
+    s1 = make(state_dir=sd, ckpt_every=1)
+    for q in mix + extra:
+        s1.submit(**q)
+    for _ in range(len(mix)):
+        if len(s1.responses) >= len(mix):
+            break
+        s1.step()
+    if len(s1.responses) != len(mix):
+        fail(f"the mix took more steps than requests: "
+             f"{len(s1.responses)} answers")
+    with faults.inject_chunk_faults(
+            faults.FaultPlan(pkill_at=SERVICE_KILL_AT)) as plan:
+        try:
+            s1.run_until_drained()
+            fail("the process kill did not propagate out of the service")
+        except faults.ProcessKill:
+            pass
+    killed = list(s1.responses)
+    t0 = time.perf_counter()
+    s2 = make(state_dir=sd, ckpt_every=1)
+    replayed = s2.stats["replayed"]
+    out, wall = drain(s2, [])
+    walls["restart_drain_ms"] = (time.perf_counter() - t0) * 1e3
+    h2 = s2.health()
+    s2.close()
+    check_same("the restart's answers against the clean run",
+               sorted(killed + out, key=lambda r: r.rid),
+               clean + extra_clean)
+    if replayed != len(extra) or len(out) != len(extra) or \
+            h2["resumes"] < 1 or (SERVICE_KILL_AT, "pkill") not in plan.fired:
+        fail(f"restart: replayed {replayed} after {len(killed)} answers, "
+             f"health {h2}, fired {plan.fired}")
+    s3 = make(state_dir=sd, ckpt_every=1)
+    if s3.stats["replayed"]:
+        fail(f"a second restart replayed {s3.stats['replayed']}")
+    s3.close()
+    restart = dict(killed_answers=len(killed), replayed=replayed,
+                   resumes=h2["resumes"], ckpt_gc=h2["ckpt_gc"],
+                   store=h2["store"])
+    log(f"[2] service restart: killed at chunk {SERVICE_KILL_AT} of the "
+        f"{SERVICE_KILL_METRIC} stream after {len(killed)} answers; "
+        f"{replayed} replayed and drained in "
+        f"{walls['restart_drain_ms']:.1f} ms, bit-identical; {restart}")
+
+    # 4. two fault events on the first feasible best-chip answer, a core
+    # loss and a seeded degraded PE array: one coalesced reschedule whose
+    # union grid holds the degraded arrays, held against the same events
+    # on the plain backend
+    chip = next(r.answer for r in clean if r.kind == "best_chip"
+                and r.answer.get("feasible"))
+    ct, cc = chip["chip_types"], chip["chip_counts"]
+    scens = (hw_faults.all_single_core_failures(cc)[:1]
+             + hw_faults.random_degradations(SERVICE_SEED, ext, ct,
+                                             n_scenarios=1))
+    union_rows = sum(hw_faults.expand_scenarios(
+        ext, ct, cc, [s], include_nominal=True).grid.n for s in scens)
+
+    def reschedule(rsvc):
+        for s in scens:
+            if not rsvc.fault_event(ct, cc, s).accepted:
+                fail(f"fault event {s.name} rejected")
+        return drain(rsvc, [])
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    resched, _ = reschedule(svc)
+    walls["reschedule_ms"] = (time.perf_counter() - t0) * 1e3
+    r_launches = ops.launch_counts()
+    if [(r.ok, r.kind, r.answer.get("scenario")) for r in resched] != \
+            [(True, "reschedule", s.name) for s in scens] or \
+            r_launches != {"count_terms": 0, "count_layers": 1}:
+        fail(f"reschedule: {[(r.ok, r.error) for r in resched]}, launches "
+             f"{r_launches}")
+    plain_resched, _ = reschedule(make("torch"))
+    check_same("the reschedule on cuda against torch", resched,
+               plain_resched, RTOL)
+    log(f"[2] service fault events {[s.name for s in scens]} on {ct} x "
+        f"{cc}: one union grid of {union_rows} rows; feasible "
+        f"{[r.answer['feasible'] for r in resched]}, counts after "
+        f"{[r.answer['counts_after'] for r in resched]}, "
+        f"{walls['reschedule_ms']:.1f} ms, launches {r_launches}; cuda = "
+        f"torch (ints exact, floats within 1e-12)")
+    h = svc.health()
+
+    # 5. scrub: clean, then one stream payload poisoned self-consistently
+    ss = make(state_dir=sd, scrub_rows=10 ** 6)
+    clean_scrub = ss.scrub()
+    key = ss._stream_key("exact", "edp")
+    arrays, meta = ss.store.get(key)
+    bad = {k: np.array(v, copy=True) for k, v in arrays.items()}
+    k, j = 1, 0
+    li = int(np.nonzero(bad["layer_energy"][k, j])[0][0])
+    bad["layer_energy"][k, j, li] *= 1.001
+    bad["topk_metric"][k, j] = (bad["layer_energy"][k, j].sum()
+                                * bad["layer_latency"][k, j].sum())
+    ss.store.put(key, arrays=bad, meta=meta)
+    t0 = time.perf_counter()
+    poison_scrub = ss.scrub()
+    scrub_ms = (time.perf_counter() - t0) * 1e3
+    reasons = [p.read_text().strip()
+               for p in ss.store.quarantine.glob("*.reason")]
+    again = ss.store.get(key)
+    ss.close()
+    if clean_scrub["bad"] or poison_scrub["bad"] != 1 or \
+            poison_scrub["recomputed"] != 1 or len(reasons) != 1 or \
+            "diverges" not in reasons[0] or again is None or \
+            any(not np.array_equal(again[0][n], arrays[n]) for n in arrays):
+        fail(f"scrub: clean {clean_scrub}, poisoned {poison_scrub}, "
+             f"reasons {reasons}")
+    log(f"[2] service scrub: clean pass {clean_scrub['scanned']} entries, "
+        f"0 bad; the poisoned stream quarantined ({reasons[0][:90]}...) "
+        f"and recomputed bit for bit in {scrub_ms:.1f} ms")
+
+    # what the verifier costs a chunk on the card: the exact stream with
+    # no verifier, with the invariants alone, and with every chunk
+    # shadow-recomputed on the CPU (median of 3 each)
+    def stream_with(v):
+        return lambda: em.stream_layer_topk(
+            ext, nets, device=dev, topk=8, bound=0.05,
+            chunk_size=SERVICE_CHUNK,
+            verify=None if v is None else verify.StreamVerifier(
+                verify_fraction=v))
+    v_ms = {name: wall_ms(stream_with(v), reps=3)
+            for name, v in (("none", None), ("invariants", 0.0),
+                            ("invariants_and_shadow", 1.0))}
+    verify_cost = dict(
+        stream_ms=v_ms,
+        invariants_ms_a_chunk=(v_ms["invariants"] - v_ms["none"])
+        / n_chunks,
+        shadow_ms_a_chunk=(v_ms["invariants_and_shadow"]
+                           - v_ms["invariants"]) / n_chunks)
+    log(f"[6] the verifier at extended x 18, {n_chunks} chunks: stream "
+        f"walls {v_ms}; invariants "
+        f"{verify_cost['invariants_ms_a_chunk']:.2f} ms a chunk, the "
+        f"shadow {verify_cost['shadow_ms_a_chunk']:.2f} ms a chunk "
+        f"({card})")
+
+    # times: a cold drain split by stage mark, and traced
+    split, marks = marked_split(lambda: drain(make()), reps=1)
+    prof = profile_ms(lambda: drain(make()), steps=1, warmup=False,
+                      match=("count_layers_kernel",))
+    phase_s = time.perf_counter() - t_phase
+    log(f"[6] service cold drain: split (ms) " + ", ".join(
+        f"{k} {v:.3f}" for k, v in split.items()) + f"; traced wall "
+        f"{prof['wall_ms']:.1f} ms, device busy {prof['device_ms']:.3f} ms "
+        f"({100 * prof['busy_share']:.3f}%), {prof['kernel_launches']:.0f} "
+        f"device launches ({card})")
+    log("dse_service " + json.dumps({
+        "card": card, "grid": "extended_grid", "points": ext.n,
+        "networks": len(nets), "requests": SERVICE_REQUESTS,
+        "seed": SERVICE_SEED, "chunk": SERVICE_CHUNK, "chunks": n_chunks,
+        "walls_ms": walls, "p50_s": h["p50_s"], "p99_s": h["p99_s"],
+        "n_lat": h["n_lat"], "launches_clean_drain": launches,
+        "launches_reschedule": r_launches,
+        "reschedule": dict(scenarios=[s.name for s in scens],
+                           union_rows=union_rows), "chaos": chaos,
+        "restart": restart, "scrub": dict(clean=clean_scrub["scanned"],
+                                          quarantined=poison_scrub["bad"],
+                                          ms=scrub_ms),
+        "shard": "stream_layer_topk(shard=True) = the service's stream",
+        "verify_cost": verify_cost, "split_ms": split,
+        "marks": marks,
+        "busy_share": prof["busy_share"], "device_ms": prof["device_ms"],
+        "traced_wall_ms": prof["wall_ms"],
+        "device_launches": prof["kernel_launches"],
+        "count_layers_ms": prof["matched_ms"]["count_layers_kernel"],
+        "phase_s": phase_s}, default=str))
+    return {k: launches[k] + r_launches[k] for k in launches}
 
 
 # ---------------------------------------------------------------------------

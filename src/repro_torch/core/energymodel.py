@@ -732,6 +732,26 @@ def _eval_chunked(fields, lay, segments, backend: str, device: torch.device,
     return e, t
 
 
+def visible_devices(dev: torch.device) -> int:
+    """How many devices of ``dev``'s kind a sharded evaluation would
+    split over: the visible cards for a CUDA device, one for the CPU."""
+    return torch.cuda.device_count() if dev.type == "cuda" else 1
+
+
+def check_shard(shard: bool, dev: torch.device) -> None:
+    """``shard=True`` asks for the deduped config axis to be split over
+    the visible devices, as the reference splits it over its host
+    devices.  With one device that split is the unsharded evaluation,
+    bit for bit, and that is what runs.  A split over several cards is
+    not written yet, so with more than one visible ``shard=True`` raises
+    rather than run on one card."""
+    if shard and visible_devices(dev) > 1:
+        raise NotImplementedError(
+            f"shard=True over {visible_devices(dev)} {dev.type} devices: "
+            f"the port evaluates on one card; pass shard=False, or hide "
+            f"the other cards with CUDA_VISIBLE_DEVICES")
+
+
 def evaluate_networks(grid: ConfigGrid,
                       networks: Mapping[str, Sequence[Layer]],
                       *,
@@ -739,6 +759,7 @@ def evaluate_networks(grid: ConfigGrid,
                       backend: str | None = None,
                       chunk_size: int | None = None,
                       per_layer: bool = False,
+                      shard: bool = False,
                       ) -> Tuple[np.ndarray, np.ndarray]:
     """Evaluate every network against every grid point.
 
@@ -755,9 +776,14 @@ def evaluate_networks(grid: ConfigGrid,
     ``[grid.n, len(networks), n_layer]`` where ``n_layer`` is the longest
     network's compute-layer count (shorter networks zero-padded — see
     :func:`network_layer_counts` for the valid lengths).
+
+    ``shard=True`` asks for the deduped config axis to be split over the
+    visible devices (see :func:`check_shard`): with one device it
+    evaluates exactly as ``shard=False``, and with several it raises.
     """
     global _LAST_BACKEND
     dev = resolve_device(device)
+    check_shard(shard, dev)
     backend = resolve_backend(backend, dev)
     lay, segments = _device_layers(networks, dev, absorb_pad=not per_layer)
     fields = grid.fields if isinstance(grid, ConfigGrid) else dict(grid)
@@ -1160,7 +1186,8 @@ def stream_networks(grid: ConfigGrid,
                     resume_from: "StreamFoldState | Mapping | None" = None,
                     on_chunk=None,
                     nan_guard: bool = True,
-                    verify=None) -> StreamResult:
+                    verify=None,
+                    shard: bool = False) -> StreamResult:
     """Chunked streaming sweep with running reductions on the device.
 
     Never materialises the full ``[n_cfg, n_net]`` matrices: each chunk
@@ -1181,9 +1208,11 @@ def stream_networks(grid: ConfigGrid,
     like the reference's ``StreamVerifier`` (``bind`` / ``check_resume``
     / ``check_chunk`` / ``check_fold``), each called before the fold
     commits; its ``ref_eval`` is the plain torch path on the CPU.
+    ``shard`` acts as in :func:`evaluate_networks`.
     """
     global _LAST_BACKEND
     dev = resolve_device(device)
+    check_shard(shard, dev)
     backend = resolve_backend(backend, dev)
     names = tuple(networks)
     n_net = len(names)
@@ -1369,7 +1398,8 @@ def stream_layer_topk(grid: ConfigGrid,
                       resume_from: "StreamFoldState | Mapping | None" = None,
                       on_chunk=None,
                       nan_guard: bool = True,
-                      verify=None) -> LayerTopK:
+                      verify=None,
+                      shard: bool = False) -> LayerTopK:
     """Streamed per-layer sweep: one pass, every co-design reduction.
 
     Equivalent to ``evaluate_networks(..., per_layer=True)`` followed by
@@ -1380,10 +1410,11 @@ def stream_layer_topk(grid: ConfigGrid,
     With ``bound=`` the result also carries the per-network boundary
     candidate sets (flat indices + aggregate energy/latency, sorted by
     (metric, index)).  ``device``, ``backend``, ``resume_from``,
-    ``on_chunk``, ``nan_guard`` (on the layer sums) and ``verify`` act as
-    in :func:`stream_networks`."""
+    ``on_chunk``, ``nan_guard`` (on the layer sums), ``verify`` and
+    ``shard`` act as in :func:`stream_networks`."""
     global _LAST_BACKEND
     dev = resolve_device(device)
+    check_shard(shard, dev)
     backend = resolve_backend(backend, dev)
     names = tuple(networks)
     n_net = len(names)

@@ -1,5 +1,12 @@
-"""Hardware-fault scenarios of the port (:mod:`.hw_faults`)."""
+"""Fault tolerance of the port: chunk-level fault injection
+(:mod:`.faults`), the silent-corruption defense (:mod:`.verify`) and
+hardware-fault scenarios (:mod:`.hw_faults`)."""
 
+from .faults import (BackendFault, FaultPlan, ProcessKill,  # noqa: F401
+                     StreamKill, inject_chunk_faults)
+from .verify import (FoldInvariantError, ShadowMismatchError,  # noqa: F401
+                     StreamVerifier, VerifyConfig,
+                     check_layer_topk_result, scrub_layer_topk)
 from .hw_faults import (CoreFailure, DegradedArray,  # noqa: F401
                         FaultScenario, ScenarioBatch,
                         all_single_core_failures, apply_counts,

@@ -96,6 +96,39 @@ def test_serving_entry_points_raise_without_a_card(no_card):
         ServeEngine(cfg, model, device="cpu", backend="cuda")
 
 
+#: The fault layer and the DSE service: each imports with jax absent and
+#: nothing of ``repro`` (the two tests above walk every module).
+SERVICE_MODULES = ("repro_torch.ft.faults", "repro_torch.ft.verify",
+                   "repro_torch.serving.store",
+                   "repro_torch.serving.dse_service",
+                   "repro_torch.launch.serve_dse")
+
+
+def test_service_modules_are_walked():
+    assert set(SERVICE_MODULES) <= set(_modules())
+    assert {PKG.parent / (m.replace(".", "/") + ".py")
+            for m in SERVICE_MODULES} <= set(PORT_FILES)
+
+
+def test_dse_service_entry_points_raise_without_a_card(no_card):
+    from repro_torch.launch import serve_dse
+    from repro_torch.serving import DSEService
+
+    grid = accelerator.ConfigGrid.product()
+    nets = {"AlexNet": topology.get_network("AlexNet")}
+    for call in (lambda: DSEService(grid, nets),
+                 lambda: DSEService(grid, nets, device="cuda"),
+                 lambda: serve_dse.main(["--requests", "1"]),
+                 lambda: energymodel.evaluate_networks(grid, nets,
+                                                       shard=True),
+                 lambda: energymodel.stream_layer_topk(grid, nets,
+                                                       shard=True)):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        DSEService(grid, nets, device="cpu", backend="cuda")
+
+
 def test_cuda_backend_on_cpu_raises():
     grid = accelerator.ConfigGrid.product()
     nets = {"AlexNet": topology.get_network("AlexNet")}
