@@ -73,7 +73,23 @@ Phases, each fatal on any error:
    time, registers, spills, shared memory and tensor-core (HMMA)
    instructions, RMSNorm at mamba2's four rows (decode and forward, the
    pre-norm and the gated norm), and the SSD's share of the forward's
-   device time; print the ``kernels`` line.
+   device time;
+8. train qwen2-0.5b at full width (seq_len 1,024, global batch 8 in the
+   config's 2 microbatches, remat, f32 AdamW state): hold the flash
+   attention and RMSNorm backward kernels against their plain backwards
+   on the card (``FLASH_BWD_CASES``, ``RMSNORM_BWD_CASES``; f32 and bf16,
+   tolerance tol x max|g| + tol x |g|, the same bits on a second call),
+   the log-sum-exp forward's O bit for bit against the same route without
+   it; one step's loss, grad norm and every gradient leaf on the kernels
+   against the plain versions from the same weights and batch, within
+   max(2e-2, 2 x the rounding floor of the plain bf16 step against its
+   float32 twin), with the launch counts set to 0 just before and read
+   just after and no plain version called; 8 steps through
+   ``repro_torch.launch.train.main`` (the loss falls) and again with a
+   checkpoint every 4 and a failure at step 5 (the final loss within
+   1e-4); the step's time by events, its tokens/s, a trace, and each
+   backward kernel's time beside its plain version, its library call and
+   its bound; print the ``train`` line, then the ``kernels`` line.
 
 Float32 matrix products run in full float32: TF32 is switched off for
 matmuls and cuDNN.  The last line of standard output is
@@ -107,7 +123,14 @@ FP32_FLOPS = 67e12
 LM_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 SSD_TOL = {"float32": 2e-4, "bfloat16": 6e-2}
 
+#: The backward kernels replace none: the JAX package differentiates XLA
+#: attention and XLA RMSNorm, never its Pallas kernels.
 REPLACES = {
+    "flash_attention_bwd": "none: the JAX package differentiates XLA "
+                           "attention (src/repro/models/layers.py:161), never "
+                           "its Pallas kernel",
+    "rmsnorm_bwd": "none: the JAX package differentiates XLA RMSNorm "
+                   "(src/repro/models/layers.py:34), never its Pallas kernel",
     "count_terms": "src/repro/kernels/count_terms/kernel.py:99",
     "count_layers": "src/repro/kernels/count_terms/kernel.py:146",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:110",
@@ -346,9 +369,13 @@ def build_all() -> dict:
 
     wrappers = (ct_ops, fa_ops, rms_ops, ssd_ops)
     t0 = time.perf_counter()
-    built = _build.build_many([(w.SOURCE, w.NVCC_FLAGS) for w in wrappers])
+    built = _build.build_many([(w.SOURCE, w.NVCC_FLAGS) for w in wrappers]
+                              + [(w.BWD_SOURCE, w.NVCC_FLAGS)
+                                 for w in (fa_ops, rms_ops)])
     for w in wrappers:
         w._lib()
+    fa_ops._bwd_lib()
+    rms_ops._bwd_lib()
     log(f"[1] built {len(built)} libraries in "
         f"{time.perf_counter() - t0:.1f} s (one nvcc per source, in parallel)")
     for source, (lib, build_log) in built.items():
@@ -2308,7 +2335,10 @@ def _lm_kernel_ops():
 def reset_lm_counts() -> None:
     for mod in _lm_kernel_ops():
         mod.reset_launch_counts()
-    _lm_kernel_ops()[0].reset_route_counts()
+    fa, rms, _ = _lm_kernel_ops()
+    fa.reset_route_counts()
+    fa.reset_backward_launch_counts()
+    rms.reset_backward_launch_counts()
 
 
 def flash_routes() -> dict:
@@ -2320,6 +2350,8 @@ def lm_counts() -> dict:
     out = {}
     for mod in _lm_kernel_ops():
         out.update(mod.launch_counts())
+    for mod in _lm_kernel_ops()[:2]:
+        out.update(mod.backward_launch_counts())
     return out
 
 
@@ -2483,54 +2515,59 @@ def forward_check(tag, cfg, model, dev, card, batch, want_counts,
     import torch
     from repro_torch.models import model_zoo as Z
 
-    b, t = batch["tokens"].shape
-    reset_lm_counts()
-    logits_k = Z.forward(model, cfg, batch)     # on the card: the kernels
-    torch.cuda.synchronize()
-    launches = lm_counts()
-    routes = flash_routes()
-    logits_p = Z.forward(model, cfg, batch, backend="torch")
-    rounding = 0.0
-    if floor:
-        with rounding_twin():
-            twin = Z.forward(model, cfg, batch, backend="torch")
-        rounding = max(float((twin[i].float() - logits_p[i].float()).abs()
-                             .max() / logits_p[i].float().abs().max())
-                       for i in range(b))
-        del twin
-    err, excess = 0.0, -1.0
-    for i in range(b):
-        got, want = logits_k[i].float(), logits_p[i].float()
-        tol = torch.maximum(logit_tol(want),
-                            2 * rounding * want.abs().amax())
-        excess = max(excess, float(((got - want).abs() - tol).max()))
-        err = max(err, float(((got - want).abs() / want.abs().amax()).max()))
-    finite = bool(torch.isfinite(logits_k).all())
-    floor_note = (f"; rounding floor {rounding:.3e}, tolerance max(2e-2, "
-                  f"2 x floor)" if floor else " (tolerance 2e-2)")
-    log(f"[{tag}] {cfg.name} forward B {b} T {t}: logits "
-        f"{tuple(logits_k.shape)} finite {finite}, max |diff| / max |logit| "
-        f"{err:.3e}{floor_note}, launches {launches}, flash routes {routes}")
-    if (not finite or excess > 0
-            or tuple(logits_k.shape) != (b, t, cfg.vocab)):
-        fail(f"the {cfg.name} forward on the kernels disagrees with the "
-             f"plain versions")
-    if launches != {k: want_counts.get(k, 0) for k in launches}:
-        fail(f"{cfg.name} forward launch counts {launches}, expected "
-             f"{want_counts}")
-    del logits_k, logits_p
-    torch.cuda.empty_cache()
-    fwd_ms = {bk: cuda_ms(lambda: Z.forward(model, cfg, batch, backend=bk),
-                          warmup=1) for bk in ("cuda", "torch")}
-    log(f"[{tag}] {cfg.name} forward B {b} T {t}: kernels "
-        f"{fwd_ms['cuda']:.2f} ms, plain {fwd_ms['torch']:.2f} ms ({card})")
-    prof = profile_ms(lambda: Z.forward(model, cfg, batch, backend="cuda"),
-                      steps=2, match=match)
-    out = dict(batch=b, seq=t, ms=fwd_ms, launches=launches,
-               flash_routes=routes, max_rel_logit_diff=err)
-    if floor:
-        out["rounding_floor"] = rounding
-    return out, prof
+    with torch.no_grad():
+        b, t = batch["tokens"].shape
+        reset_lm_counts()
+        logits_k = Z.forward(model, cfg, batch)   # on the card: the kernels
+        torch.cuda.synchronize()
+        launches = lm_counts()
+        routes = flash_routes()
+        logits_p = Z.forward(model, cfg, batch, backend="torch")
+        rounding = 0.0
+        if floor:
+            with rounding_twin():
+                twin = Z.forward(model, cfg, batch, backend="torch")
+            rounding = max(float((twin[i].float() - logits_p[i].float())
+                                 .abs().max()
+                                 / logits_p[i].float().abs().max())
+                           for i in range(b))
+            del twin
+        err, excess = 0.0, -1.0
+        for i in range(b):
+            got, want = logits_k[i].float(), logits_p[i].float()
+            tol = torch.maximum(logit_tol(want),
+                                2 * rounding * want.abs().amax())
+            excess = max(excess, float(((got - want).abs() - tol).max()))
+            err = max(err, float(((got - want).abs()
+                                  / want.abs().amax()).max()))
+        finite = bool(torch.isfinite(logits_k).all())
+        floor_note = (f"; rounding floor {rounding:.3e}, tolerance max(2e-2, "
+                      f"2 x floor)" if floor else " (tolerance 2e-2)")
+        log(f"[{tag}] {cfg.name} forward B {b} T {t}: logits "
+            f"{tuple(logits_k.shape)} finite {finite}, max |diff| / max "
+            f"|logit| {err:.3e}{floor_note}, launches {launches}, flash "
+            f"routes {routes}")
+        if (not finite or excess > 0
+                or tuple(logits_k.shape) != (b, t, cfg.vocab)):
+            fail(f"the {cfg.name} forward on the kernels disagrees with the "
+                 f"plain versions")
+        if launches != {k: want_counts.get(k, 0) for k in launches}:
+            fail(f"{cfg.name} forward launch counts {launches}, expected "
+                 f"{want_counts}")
+        del logits_k, logits_p
+        torch.cuda.empty_cache()
+        fwd_ms = {bk: cuda_ms(lambda: Z.forward(model, cfg, batch, backend=bk),
+                              warmup=1) for bk in ("cuda", "torch")}
+        log(f"[{tag}] {cfg.name} forward B {b} T {t}: kernels "
+            f"{fwd_ms['cuda']:.2f} ms, plain {fwd_ms['torch']:.2f} ms "
+            f"({card})")
+        prof = profile_ms(lambda: Z.forward(model, cfg, batch, backend="cuda"),
+                          steps=2, match=match)
+        out = dict(batch=b, seq=t, ms=fwd_ms, launches=launches,
+                   flash_routes=routes, max_rel_logit_diff=err)
+        if floor:
+            out["rounding_floor"] = rounding
+        return out, prof
 
 
 def log_profiles(tag, name, prof, card) -> None:
@@ -3243,6 +3280,442 @@ def ssm_path(dev, card, rms_err, built) -> tuple:
     return rows, launches, rms_err
 
 
+# ---------------------------------------------------------------------------
+# 8. train qwen2-0.5b: the backward kernels, a step on both backends, the
+#    trainer with a failure and its replay
+# ---------------------------------------------------------------------------
+
+#: Full-width training of qwen2-0.5b: seq_len, global batch (the config's 2
+#: microbatches of 4), steps through the trainer, a checkpoint every 4 and
+#: one injected failure at step 5.
+TRAIN_T, TRAIN_B, TRAIN_STEPS = 1024, 8, 8
+TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 4, 5
+#: The trainer's final loss after a failure and its replay, against a clean
+#: run's: the JAX package's own tolerance (``tests/test_system.py:29``).
+RECOVERY_RTOL = 1e-4
+#: Flash backward cases (b, t, h, kv, d, causal, window, label); each runs
+#: in f32 and bf16.
+FLASH_BWD_CASES = (
+    (4, 1024, 14, 2, 64, True, 0, "train shape T=1024 causal"),
+    (2, 512, 16, 2, 128, True, 0, "D=128 T=512 causal"),
+    (2, 512, 14, 2, 64, True, 96, "window T=512 w=96"),
+    (2, 1000, 14, 2, 64, True, 0, "ragged T=1000 causal"),
+    (2, 256, 4, 4, 64, True, 0, "G=1 T=256 causal"),
+    (2, 256, 14, 2, 64, False, 0, "T=256 full"),
+    (2, 8, 14, 2, 64, True, 0, "T=8 causal (below the split route's rows)"))
+#: RMSNorm backward cases [rows, D]: the train shape, a ragged row count,
+#: the block route at mamba2's widths, one element an access.
+RMSNORM_BWD_CASES = ((4096, 896), (4095, 896), (2560, 2560), (1000, 5120),
+                     (5, 1001))
+
+
+def _grad_held(label, got, want, tol) -> float:
+    """``got`` within tol·max|want| + tol·|want| of ``want`` → max abs
+    error; fails otherwise."""
+    import torch
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    err = float(diff.max())
+    if not bool(torch.isfinite(g).all()) or float(
+            (diff - tol * w.abs().amax() - tol * w.abs()).max()) > 0:
+        fail(f"{label} disagrees with its plain version: max abs {err}, max "
+             f"|plain| {float(w.abs().max())}")
+    return err
+
+
+def train_kernel_checks(dev) -> dict:
+    """Each backward kernel against its plain backward on the card, the
+    same bits on a second call; the log-sum-exp forward's O against the
+    same route without it (bit for bit) and its LSE against the plain one
+    → max abs errors."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa, ref as fa_ref
+    from repro_torch.kernels.rmsnorm import ops as rms, ref as rms_ref
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    errs = {"flash_attention_bwd": 0.0, "rmsnorm_bwd": 0.0, "lse": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = LM_TOL[str(dtype).split(".")[1]]
+        for b, t, h, kvh, d, causal, window, label in FLASH_BWD_CASES:
+            q = _rand((b, t, h, d), gen, dtype, dev)
+            k = _rand((b, t, kvh, d), gen, dtype, dev)
+            v = _rand((b, t, kvh, d), gen, dtype, dev)
+            dout = _rand((b, t, h, d), gen, dtype, dev)
+            route = fa._grad_route(dtype, d)
+            out, lse = fa._launch(q, k, v, causal, window, 0, route, True)
+            plain_o, _ = fa._launch(q, k, v, causal, window, 0, route, False)
+            if not torch.equal(out, plain_o):
+                fail(f"flash_attention {label} {dtype}: the {route} route's "
+                     f"O differs with the log-sum-exp written")
+            _, want_lse = fa_ref.attention_fwd_ref(q, k, v, causal=causal,
+                                                   window=window)
+            lse_err = float((lse - want_lse).abs().max())
+            if lse_err > tol * (1 + float(want_lse.abs().max())):
+                fail(f"flash_attention {label} {dtype}: log-sum-exp off by "
+                     f"{lse_err}")
+            run = lambda: fa.flash_attention_bwd(                # noqa: E731
+                q, k, v, out, lse, dout, causal=causal, window=window)
+            got = run()
+            torch.cuda.synchronize()
+            want = fa_ref.attention_bwd_ref(q, k, v, out, lse, dout,
+                                            causal=causal, window=window)
+            err = max(_grad_held(f"flash_attention_bwd {label} {dtype} {n}",
+                                 g, w, tol)
+                      for n, g, w in zip(("dq", "dk", "dv"), got, want))
+            again = run()
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                fail(f"flash_attention_bwd {label} {dtype} gives other bits "
+                     f"on a second call")
+            log(f"[8] flash_attention_bwd {label} {dtype}: forward route "
+                f"{route} (O bit-equal without the log-sum-exp; lse max abs "
+                f"err {lse_err:.3e}), dq/dk/dv max abs err {err:.3e} "
+                f"(tolerance {tol} x max|g| + {tol} x |g|), same bits twice")
+            errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], err)
+            errs["lse"] = max(errs["lse"], lse_err)
+            del q, k, v, dout, out, lse, plain_o, got, want, again
+        for rows, d in RMSNORM_BWD_CASES:
+            x = _rand((rows, d), gen, dtype, dev)
+            sc = torch.randn(d, generator=gen, device=dev)
+            g = _rand((rows, d), gen, dtype, dev)
+            dx, dsc = rms.rmsnorm_bwd(x, sc, g)
+            torch.cuda.synchronize()
+            wdx, wdsc = rms_ref.rmsnorm_bwd_ref(x, sc, g)
+            err = max(_grad_held(f"rmsnorm_bwd [{rows}, {d}] {dtype} dx", dx,
+                                 wdx, tol),
+                      _grad_held(f"rmsnorm_bwd [{rows}, {d}] {dtype} dscale",
+                                 dsc, wdsc, tol))
+            dx2, dsc2 = rms.rmsnorm_bwd(x, sc, g)
+            if not (torch.equal(dx, dx2) and torch.equal(dsc, dsc2)):
+                fail(f"rmsnorm_bwd [{rows}, {d}] {dtype} gives other bits on "
+                     f"a second call")
+            route, threads, blocks = rms.bwd_plan(rows, d)
+            log(f"[8] rmsnorm_bwd [{rows}, {d}] {dtype}: {route} route, "
+                f"{threads} threads x {blocks} blocks; dx/dscale max abs err "
+                f"{err:.3e} (tolerance {tol} x max|g| + {tol} x |g|), same "
+                f"bits twice")
+            errs["rmsnorm_bwd"] = max(errs["rmsnorm_bwd"], err)
+    return errs
+
+
+_PLAIN = (("flash_attention", "attention_ref"),
+          ("flash_attention", "attention_fwd_ref"),
+          ("flash_attention", "attention_bwd_ref"),
+          ("rmsnorm", "rmsnorm_ref"), ("rmsnorm", "rmsnorm_bwd_ref"))
+
+
+@contextlib.contextmanager
+def counting_plain_versions(calls: dict):
+    """Within: every call of a kernel's plain version (through its module or
+    the model's backend tables) adds one to ``calls[name]``."""
+    import importlib
+    from repro_torch.models import layers
+
+    saved = []
+    for kernel, name in _PLAIN:
+        mod = importlib.import_module(f"repro_torch.kernels.{kernel}.ref")
+        fn = getattr(mod, name)
+        calls.setdefault(name, 0)
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, counted)
+    # the model's backend tables hold the plain forwards themselves
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.rmsnorm import ref as rms_ref
+    plain_tables = [(layers._ATTENTION, layers._ATTENTION["torch"]),
+                    (layers._RMSNORM, layers._RMSNORM["torch"])]
+    layers._ATTENTION["torch"] = fa_ref.attention_ref
+    layers._RMSNORM["torch"] = rms_ref.rmsnorm_ref
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+        for t, fn in plain_tables:
+            t["torch"] = fn
+
+
+def _leaf_rel(got, want) -> list:
+    """max |got - want| / max |want| of each leaf pair."""
+    return [float((g.float() - w.float()).abs().max()
+                  / w.float().abs().max().clamp_min(1e-30))
+            for g, w in zip(got, want)]
+
+
+def train_step_check(cfg, dev, card) -> dict:
+    """One train step's loss and gradients at full width on the kernels
+    (counts set to 0 just before, read just after; every plain version
+    counted) and on the plain versions, from the same parameters and
+    batch, held to max(2e-2, 2 x the rounding floor): how far the plain
+    bf16 step lies from its float32 twin."""
+    import torch
+    from repro_torch.data import DataPipeline, SyntheticLM
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model_zoo as Z
+    from repro_torch.models import params as P
+    from repro_torch.optim.clip import global_norm
+    from repro_torch.tree import leaves, tree_map
+
+    params = P.init_tree(Z.spec(cfg), torch.Generator(device=dev)
+                         .manual_seed(0), dev)
+    pipe = DataPipeline(SyntheticLM(cfg.vocab, 0), global_batch=TRAIN_B,
+                        seq_len=TRAIN_T)
+    try:
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in pipe._make_batch(0).items()}
+    finally:
+        pipe.close()
+    m = cfg.microbatches
+    reset_lm_counts()
+    with counting_plain_versions({}) as plain_calls:
+        loss_k, grads_k = ST.loss_and_grads(params, cfg, batch,
+                                            microbatches=m, backend="cuda")
+        torch.cuda.synchronize()
+    counts = dict(lm_counts(), **{f"flash_{r}": n
+                                  for r, n in flash_routes().items()})
+    loss_t, grads_t = ST.loss_and_grads(params, cfg, batch, microbatches=m,
+                                        backend="torch")
+    params32 = tree_map(lambda p: p.float(), params)
+    loss_f, grads_f = ST.loss_and_grads(params32, cfg, batch,
+                                        microbatches=m, backend="torch")
+    del params32
+    gk, gt, gf = leaves(grads_k), leaves(grads_t), leaves(grads_f)
+    norms = [float(global_norm(g)) for g in (grads_k, grads_t, grads_f)]
+    rel_k = _leaf_rel(gk, gt)
+    floor_leaf = _leaf_rel(gt, gf)
+    loss_rel = abs(float(loss_k) - float(loss_t)) / abs(float(loss_t))
+    loss_floor = abs(float(loss_t) - float(loss_f)) / abs(float(loss_f))
+    norm_rel = abs(norms[0] - norms[1]) / norms[1]
+    norm_floor = abs(norms[1] - norms[2]) / norms[2]
+    floor = max(floor_leaf + [loss_floor, norm_floor])
+    over = [i for i, (e, f) in enumerate(zip(rel_k, floor_leaf))
+            if e > max(2e-2, 2 * f)]
+    log(f"[8] {cfg.name} one step (B {TRAIN_B}, T {TRAIN_T}, {m} "
+        f"microbatches): loss cuda {float(loss_k):.6f} torch "
+        f"{float(loss_t):.6f} f32 twin {float(loss_f):.6f}; grad norm cuda "
+        f"{norms[0]:.6f} torch {norms[1]:.6f} twin {norms[2]:.6f}; cuda vs "
+        f"torch: loss rel {loss_rel:.3e}, grad norm rel {norm_rel:.3e}, "
+        f"largest leaf error / max|g| {max(rel_k):.3e}; rounding floor "
+        f"(torch bf16 vs its f32 twin): loss {loss_floor:.3e}, grad norm "
+        f"{norm_floor:.3e}, leaves up to {max(floor_leaf):.3e}; tolerance "
+        f"max(2e-2, 2 x floor) per quantity; launches {counts}; plain "
+        f"versions called on the cuda step {plain_calls} ({card})")
+    if not (torch.isfinite(loss_k) and all(bool(torch.isfinite(g).all())
+                                           for g in gk)):
+        fail("the kernels' train step gave a non-finite loss or gradient")
+    if over or loss_rel > max(2e-2, 2 * loss_floor) \
+            or norm_rel > max(2e-2, 2 * norm_floor):
+        fail(f"the kernels' train step disagrees with the plain versions' "
+             f"beyond max(2e-2, 2 x floor): loss {loss_rel}, grad norm "
+             f"{norm_rel}, leaves {[(i, rel_k[i], floor_leaf[i]) for i in over]}")
+    if any(plain_calls.values()):
+        fail(f"the cuda backend's train step called plain versions: "
+             f"{plain_calls}")
+    L = cfg.n_layers
+    want = {"flash_attention": 2 * L * m, "flash_mma": 2 * L * m,
+            "flash_fma": 0, "flash_split": 0, "flash_attention_bwd": L * m,
+            "rmsnorm": (2 * L + 1 + 2 * L) * m, "rmsnorm_bwd": (2 * L + 1) * m,
+            "ssd": 0}
+    if counts != want:
+        fail(f"train step launch counts {counts}, expected {want}")
+    del grads_k, grads_t, grads_f, gk, gt, gf
+    torch.cuda.empty_cache()
+    return dict(loss_cuda=float(loss_k), loss_torch=float(loss_t),
+                loss_f32_twin=float(loss_f), grad_norm_cuda=norms[0],
+                grad_norm_torch=norms[1], grad_norm_f32_twin=norms[2],
+                loss_rel=loss_rel, grad_norm_rel=norm_rel,
+                max_leaf_rel=max(rel_k), rounding_floor=floor,
+                floor_loss=loss_floor, floor_grad_norm=norm_floor,
+                floor_leaf_max=max(floor_leaf), launches=counts,
+                plain_calls=plain_calls)
+
+
+def trainer_runs(card) -> dict:
+    """Eight steps through ``repro_torch.launch.train.main`` at full width
+    on the card, clean and with a failure at step 5 after a checkpoint at
+    step 4: the loss falls, and the replayed run ends on the clean run's
+    final loss within ``RECOVERY_RTOL``."""
+    from repro_torch.launch import train
+
+    common = ["--arch", "qwen2-0.5b", "--no-smoke", "--steps",
+              str(TRAIN_STEPS), "--seq-len", str(TRAIN_T), "--global-batch",
+              str(TRAIN_B)]
+    t0 = time.perf_counter()
+    clean = train.main(common)
+    t1 = time.perf_counter()
+    failed = train.main(common + ["--ckpt-every", str(TRAIN_CKPT_EVERY),
+                                  "--inject-failure-at", str(TRAIN_FAIL_AT)])
+    t2 = time.perf_counter()
+    rel = abs(failed[-1] - clean[-1]) / abs(clean[-1])
+    same = failed[-1] == clean[-1]
+    log(f"[8] trainer, {TRAIN_STEPS} steps: losses {clean}; wall "
+        f"{t1 - t0:.1f} s; with a checkpoint every {TRAIN_CKPT_EVERY} and a "
+        f"failure at step {TRAIN_FAIL_AT}: {len(failed)} step runs, final "
+        f"loss {failed[-1]!r} vs {clean[-1]!r} (rel {rel:.3e}, tolerance "
+        f"{RECOVERY_RTOL}; bit-identical: {same}); wall {t2 - t1:.1f} s "
+        f"({card})")
+    if not clean[-1] < clean[0]:
+        fail(f"the trainer's loss did not fall over {TRAIN_STEPS} steps: "
+             f"{clean}")
+    if rel > RECOVERY_RTOL:
+        fail(f"the replayed run's final loss {failed[-1]} is {rel} from the "
+             f"clean run's {clean[-1]}")
+    return dict(losses=clean, losses_with_failure=failed, recovery_rel=rel,
+                recovery_bit_identical=same, wall_s_clean=t1 - t0,
+                wall_s_failure=t2 - t1)
+
+
+def train_times(cfg, dev, card) -> tuple:
+    """The step's time by CUDA events (median of steps 3-8 of 8) and its
+    tokens/s, one step traced (device busy share, largest kernels), and
+    each backward kernel's time beside its plain version, its library call
+    (the autograd backward of SDPA and of ``F.rms_norm``) and its bound, at
+    the step's shapes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.data import DataPipeline, SyntheticLM
+    from repro_torch.kernels.flash_attention import ops as fa, ref as fa_ref
+    from repro_torch.kernels.rmsnorm import ops as rms, ref as rms_ref
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model_zoo as Z
+    from repro_torch.models import params as P
+
+    step_fn, opt = ST.build_train_step(cfg, seq_len=TRAIN_T,
+                                       global_batch=TRAIN_B, lr=3e-3,
+                                       device=dev, backend="cuda")
+    params = P.init_tree(Z.spec(cfg), torch.Generator(device=dev)
+                         .manual_seed(0), dev)
+    state = opt.init(params)
+    pipe = DataPipeline(SyntheticLM(cfg.vocab, 0), global_batch=TRAIN_B,
+                        seq_len=TRAIN_T)
+    try:
+        batches = [{k: torch.from_numpy(v).to(dev)
+                    for k, v in pipe._make_batch(i).items()}
+                   for i in range(TRAIN_STEPS + 2)]
+    finally:
+        pipe.close()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for i in range(TRAIN_STEPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        params, state, metrics = step_fn(params, state, batches[i])
+        b.record()
+        torch.cuda.synchronize()
+        step_ms.append(a.elapsed_time(b))
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(step_ms[2:])
+    tokens = TRAIN_B * TRAIN_T
+    prof = profile_ms(lambda: step_fn(params, state, batches[TRAIN_STEPS]),
+                      steps=1, warmup=False,
+                      match=("flash_bwd", "flash_mma", "rmsnorm_bwd",
+                             "rmsnorm_warp", "gemm", "Kernel2"))
+    log(f"[8] train step on the kernels: {[round(x, 3) for x in step_ms]} ms "
+        f"by events; median of steps 3-{TRAIN_STEPS} {med:.3f} ms, "
+        f"{tokens / med * 1e3:.1f} tokens/s; peak device memory "
+        f"{peak / 1e9:.2f} GB ({card})")
+    log_profiles("8", cfg.name, {"train step": prof}, card)
+    del params, state, batches
+    torch.cuda.empty_cache()
+
+    # each backward kernel at the step's shapes
+    bf16 = torch.bfloat16
+    b, t, h, kvh, d = (TRAIN_B // cfg.microbatches, TRAIN_T, cfg.n_heads,
+                       cfg.n_kv_heads, cfg.head_dim)
+    g = torch.Generator(device=dev).manual_seed(9)
+    q, k, v, dout = (_rand((b, t, n, d), g, bf16, dev)
+                     for n in (h, kvh, kvh, h))
+    out, lse = fa._launch(q, k, v, True, 0, 0, "mma", True)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+    lib_dout = dout.transpose(1, 2)
+    pairs = b * h * t * (t + 1) // 2
+    # q, o, dO read and dq written; k, v read and dk, dv written; lse read
+    n_bytes = 2 * (4 * b * t * h * d + 4 * b * t * kvh * d) + 4 * b * h * t
+    b_ms, b_by = bound(n_bytes, 10 * d * pairs, BF16_FLOPS)
+    times = {"flash_attention_bwd": dict(
+        shape=[b, t, h, kvh, d], causal=True,
+        ms=cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout)),
+        plain_ms=cuda_ms(lambda: fa_ref.attention_bwd_ref(q, k, v, out, lse,
+                                                          dout)),
+        library_ms=cuda_ms(lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), lib_dout, retain_graph=True)),
+        bound_ms=b_ms, bound_by=b_by, bytes=n_bytes, ops=10 * d * pairs)}
+    del q, k, v, dout, out, lse, qt, kt, vt, lib_out, lib_dout
+    rows, dm = b * t, cfg.d_model
+    x = _rand((rows, dm), g, bf16, dev)
+    gy = _rand((rows, dm), g, bf16, dev)
+    sc = torch.ones(dm, device=dev)
+    xl = x.detach().requires_grad_()
+    sl = sc.to(bf16).requires_grad_()
+    y = F.rms_norm(xl, (dm,), sl, 1e-6)
+    n_bytes = 3 * rows * dm * 2 + 2 * 4 * dm
+    b_ms, b_by = bound(n_bytes, 10 * rows * dm, FP32_FLOPS)
+    times["rmsnorm_bwd"] = dict(
+        shape=[rows, dm],
+        ms=cuda_ms(lambda: rms.rmsnorm_bwd(x, sc, gy)),
+        plain_ms=cuda_ms(lambda: rms_ref.rmsnorm_bwd_ref(x, sc, gy)),
+        library_ms=cuda_ms(lambda: torch.autograd.grad(
+            y, (xl, sl), gy, retain_graph=True)),
+        bound_ms=b_ms, bound_by=b_by, bytes=n_bytes)
+    del x, gy, xl, sl, y
+    torch.cuda.empty_cache()
+    log_times("8", times, card)
+    step = dict(step_ms=step_ms, median_step_ms=med,
+                tokens_per_s=tokens / med * 1e3, peak_bytes=peak)
+    return step, prof, times
+
+
+def train_path(dev, card) -> tuple:
+    """qwen2-0.5b training: phase 8 → (kernel rows, launches per kernel)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    t_phase = time.perf_counter()
+    errs = train_kernel_checks(dev)
+    cfg = get_config("qwen2-0.5b")
+    log(f"[8] {cfg.name} training at full width: {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
+        f"vocab {cfg.vocab}, {cfg.param_count()} parameters (bf16) with f32 "
+        f"AdamW m, v and master; seq_len {TRAIN_T}, global batch {TRAIN_B}, "
+        f"{cfg.microbatches} microbatches, remat {cfg.remat}")
+    step = train_step_check(cfg, dev, card)
+    runs = trainer_runs(card)
+    timing, prof, times = train_times(cfg, dev, card)
+    builds = {"flash_attention_bwd": {
+        str(dt).split(".")[1] + f" d{d}": fa.bwd_resources(dt, d)
+        for dt in (torch.float32, torch.bfloat16) for d in fa.HEAD_DIMS}}
+    log(f"[8] flash backward (shared bytes, dK/dV registers, dQ registers): "
+        f"{builds['flash_attention_bwd']}")
+    log("train " + json.dumps({
+        "card": card, "model": cfg.name, "seq_len": TRAIN_T,
+        "global_batch": TRAIN_B, "microbatches": cfg.microbatches,
+        "step": step, "trainer": runs, "timing": timing,
+        "profile": prof, "kernels": times, "max_abs_err": errs,
+        "build": builds, "phase_s": time.perf_counter() - t_phase}))
+    rows = []
+    for name, src in (("flash_attention_bwd",
+                       "src/repro_torch/csrc/flash_attention_bwd.cu"),
+                      ("rmsnorm_bwd", "src/repro_torch/csrc/rmsnorm_bwd.cu")):
+        r = times[name]
+        rows.append(dict(
+            name=name, route="cuda", source=src, replaces=REPLACES[name],
+            launches=step["launches"][name], max_abs_err=errs[name],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            shape=f"qwen2-0.5b train {r['shape']} bf16"))
+    launches = {k: step["launches"][k]
+                for k in ("flash_attention", "rmsnorm")}
+    return rows, launches
+
+
 def main() -> None:
     try:
         import torch
@@ -3274,9 +3747,11 @@ def main() -> None:
     rms_row = lm_rows[1]
     ssm_rows, ssm_launches, rms_row["max_abs_err"] = ssm_path(
         dev, card, rms_row["max_abs_err"], built)
+    train_rows, train_launches = train_path(dev, card)
     for row in lm_rows + ssm_rows:
-        row["launches"] = lm_launches[row["name"]] + ssm_launches[row["name"]]
-    rows += lm_rows + ssm_rows
+        row["launches"] = (lm_launches[row["name"]] + ssm_launches[row["name"]]
+                           + train_launches.get(row["name"], 0))
+    rows += lm_rows + ssm_rows + train_rows
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))

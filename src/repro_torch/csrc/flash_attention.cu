@@ -23,6 +23,15 @@
 //          cores.  float32 stays off the tensor cores because its
 //          tolerance of 2e-5 cannot be met with bf16 products.
 //
+// The log-sum-exp.  The two prefill kernels (mma, fma) also write each
+// row's log-sum-exp lse = m sm_scale + ln(l) (natural log; -inf for a row
+// that sees no key) to lse[B, H, T] in fp32 when the wrapper passes its
+// address, as the forward of a call that needs a gradient does
+// (FlashAttention in ops.py; the backward, flash_attention_bwd.cu, rebuilds
+// P from it).  The write is one store a row after the output; everything
+// before it, O's bits included, is the same with or without it.  The split
+// route never writes it.
+//
 // Bound on this card.  Prefill (T = S, causal) does 4 D operations per
 // visible (row, key) pair against B T (H + 2 KV) D elements: at qwen2-0.5b's
 // forward (B 2, T 2048, H 14, KV 2, D 64) that is 15.0 GFLOP, 0.0152 ms on
@@ -212,6 +221,8 @@ struct Args {
   int kps;
   float* ws;
   unsigned int* tickets;
+  // the mma and fma routes: the rows' log-sum-exp [B, H, T], or null
+  float* lse;
 };
 
 template <int D, int BKV>
@@ -394,6 +405,9 @@ flash_kernel(const Args a) {
       l += __shfl_xor_sync(0xffffffffu, l, off);
     if (!row_ok[i]) continue;
     const float inv = 1.f / fmaxf(l, 1e-30f);
+    if (a.lse != nullptr && lane == 0)
+      a.lse[(b * a.h + row_h[i]) * a.t + row_t[i]] =
+          m[i] == -INFINITY ? -INFINITY : m[i] + logf(l);
     // o is contiguous [B, T, H, D]
     T* dst = o + ((b * a.t + row_t[i]) * a.h + row_h[i]) * D;
 #pragma unroll
@@ -703,6 +717,14 @@ flash_mma_kernel(const Args a) {
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  if (a.lse != nullptr && (lane & 3) == 0) {
+    // m is the row's max of the unscaled scores, l its sum of 2^((s - m)
+    // sm_scale log2 e) = e^((s - m) sm_scale)
+    float* lrow = a.lse + (b * a.h + h) * a.t;
+    const int t_a = t0 + wrow0 + gr, t_b = t_a + 8;
+    if (t_a < a.t) lrow[t_a] = m0 == -INFINITY ? -INFINITY : fmaf(m0, a.sm_scale, logf(l0));
+    if (t_b < a.t) lrow[t_b] = m1 == -INFINITY ? -INFINITY : fmaf(m1, a.sm_scale, logf(l1));
+  }
   bf16* st = qs + wrow0 * S;
 #pragma unroll
   for (int n = 0; n < ND; ++n) {
@@ -1114,9 +1136,11 @@ cudaError_t launch_split_typed(const Args& a, int b, int d, int splits,
 }
 
 // The one argument of flash_attention_launch, packed by the wrapper
-// (ops._LAUNCH, struct format "<16q13if"): addresses, element strides of
+// (ops._LAUNCH, struct format "<16q13ifq"): addresses, element strides of
 // q [B, T, H, D] and k, v [B, S, KV, D] (the last axis contiguous, rows
-// 16-byte aligned), then the sizes and flags.  o is contiguous [B, T, H, D].
+// 16-byte aligned), then the sizes and flags, the scale and the address of
+// the log-sum-exp output [B, H, T] fp32 (0: none; the split route takes
+// none).  o is contiguous [B, T, H, D].
 struct Launch {
   int64_t q, k, v, o, ws, tickets, stream;
   int64_t qsb, qst, qsh, ksb, kss, ksh, vsb, vss, vsh;
@@ -1124,8 +1148,9 @@ struct Launch {
   // splits and kps (keys a split) for the split route
   int32_t route, dtype, b, t, s, h, kv, d, causal, window, q_offset, splits, kps;
   float sm_scale;
+  int64_t lse;
 };
-static_assert(sizeof(Launch) == 184, "ops._LAUNCH packs 184 bytes");
+static_assert(sizeof(Launch) == 192, "ops._LAUNCH packs 192 bytes");
 
 }  // namespace
 
@@ -1142,9 +1167,10 @@ extern "C" int flash_attention_launch(const void* packed) {
          p.t, p.s, p.h, p.kv, p.h / p.kv, p.qsb, p.qst, p.qsh, p.ksb, p.kss,
          p.ksh, p.vsb, p.vss, p.vsh, p.causal, p.window, p.q_offset,
          p.sm_scale, p.kps, reinterpret_cast<float*>(p.ws),
-         reinterpret_cast<unsigned int*>(p.tickets)};
+         reinterpret_cast<unsigned int*>(p.tickets), reinterpret_cast<float*>(p.lse)};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(p.stream);
   if (p.route == 2) {
+    if (p.lse != 0) return cudaErrorInvalidValue;
     const int row_tiles = (a.t * a.g + kSplitRows - 1) / kSplitRows;
     if (p.dtype == 0)
       return launch_split_typed<float>(a, p.b, p.d, p.splits, row_tiles, st);

@@ -1,7 +1,10 @@
-"""Fault tolerance of the port: chunk-level fault injection
+"""Fault tolerance of the port: the trainer's checkpoint-and-restart
+supervisor (:mod:`.supervisor`), chunk-level fault injection
 (:mod:`.faults`), the silent-corruption defense (:mod:`.verify`) and
 hardware-fault scenarios (:mod:`.hw_faults`)."""
 
+from .supervisor import (FaultInjector, Preemption,  # noqa: F401
+                         Supervisor, WorkerFailure)
 from .faults import (BackendFault, FaultPlan, ProcessKill,  # noqa: F401
                      StreamKill, inject_chunk_faults)
 from .verify import (FoldInvariantError, ShadowMismatchError,  # noqa: F401

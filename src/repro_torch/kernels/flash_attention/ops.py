@@ -23,6 +23,20 @@ The host path of a call is kept short: every size, stride, flag and
 address goes to the C launcher as one packed argument (``_LAUNCH``,
 the source's ``struct Launch``), the current stream is read as a raw
 handle, and the device is switched only when q's is not current.
+
+Gradients.  Where autograd needs one (grad mode on and q, k or v
+requiring a gradient) the call goes through :class:`FlashAttention`, an
+``autograd.Function``: its forward takes the route that also writes the
+per-row log-sum-exp (``"mma"`` for bf16 at a head dim of ``HEAD_DIMS``,
+else ``"fma"``, at any T; never ``"split"``), and its backward is
+:func:`flash_attention_bwd`, the kernels of
+``src/repro_torch/csrc/flash_attention_bwd.cu`` on the card (one host
+call, three device launches) and the plain backward of ``ref.py`` on the
+CPU.  A gradient is served for self-attention only (T == S, q_offset 0:
+the training path); any other shape raises.  Under
+``torch.utils.checkpoint`` the recomputed forward takes the same route
+and gives the same bits.  ``backward_launch_counts()`` counts the
+backward calls that launched the kernels.
 """
 
 from __future__ import annotations
@@ -61,11 +75,23 @@ SPLIT_ROWS = 8
 MAX_SPLITS = 16
 
 #: The C launcher's one argument: 16 int64 (addresses, the stream, strides),
-#: 13 int32 (route, dtype, sizes, flags, splits, keys a split), the scale.
-_LAUNCH = struct.Struct("<16q13if")
+#: 13 int32 (route, dtype, sizes, flags, splits, keys a split), the scale,
+#: the address of the log-sum-exp output (0: not written).
+_LAUNCH = struct.Struct("<16q13ifq")
+
+BWD_SOURCE = _build.CSRC / "flash_attention_bwd.cu"
+#: The backward launcher's one argument: 11 int64 (addresses of q, k, v, o,
+#: dO, lse, the Delta workspace, dq, dk, dv; the stream), 10 int32 (dtype,
+#: sizes, flags), the scale, 4 bytes of padding.
+_BWD_LAUNCH = struct.Struct("<11q10if4x")
+#: Keys a dK/dV block and query rows a dQ block of the backward.
+BWD_KEYS = 32
+BWD_ROWS = 32
 
 _LIB = None
+_BWD_LIB = None
 _LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+_BWD_LAUNCHES: Dict[str, int] = {"flash_attention_bwd": 0}
 _ROUTES: Dict[str, int] = dict.fromkeys(ROUTES, 0)
 # the split route's ticket counters by (device index, stream): (tensor,
 # address); each call leaves them at 0
@@ -80,6 +106,17 @@ def launch_counts() -> Dict[str, int]:
 
 def reset_launch_counts() -> None:
     _LAUNCHES["flash_attention"] = 0
+
+
+def backward_launch_counts() -> Dict[str, int]:
+    """Backward calls that launched the kernels since the last
+    :func:`reset_backward_launch_counts` (one a call, three device
+    launches)."""
+    return dict(_BWD_LAUNCHES)
+
+
+def reset_backward_launch_counts() -> None:
+    _BWD_LAUNCHES["flash_attention_bwd"] = 0
 
 
 def route_counts() -> Dict[str, int]:
@@ -102,6 +139,12 @@ def _route(dtype: torch.dtype, t: int, d: int) -> str:
     if dtype == torch.bfloat16 and d in HEAD_DIMS:
         return "mma"
     return "fma"
+
+
+def _grad_route(dtype: torch.dtype, d: int) -> str:
+    """The route of a forward whose gradient is needed: one that writes the
+    log-sum-exp at any T (``"mma"`` for bf16, ``"fma"`` otherwise)."""
+    return "mma" if dtype == torch.bfloat16 and d in HEAD_DIMS else "fma"
 
 
 def _splits(s: int, b: int, kv: int, rows: int) -> Tuple[int, int]:
@@ -135,6 +178,37 @@ def _lib():
                 f"{(_LAUNCH.size, SPLIT_ROWS, MAX_SPLITS)}")
         _LIB = lib
     return _LIB
+
+
+def _bwd_lib():
+    global _BWD_LIB
+    if _BWD_LIB is None:
+        p, i32 = ctypes.c_void_p, ctypes.c_int
+        lib = _build.load(BWD_SOURCE, NVCC_FLAGS, {
+            "flash_attention_bwd_launch": [ctypes.c_char_p],
+            "flash_attention_bwd_constants": [p],
+            "flash_attention_bwd_resources": [i32, i32, p]})
+        out = (ctypes.c_int * 3)()
+        lib.flash_attention_bwd_constants(out)
+        want = (_BWD_LAUNCH.size, BWD_KEYS, BWD_ROWS)
+        if tuple(out) != want:
+            raise RuntimeError(
+                f"flash_attention_bwd.cu's BwdLaunch size, keys a dK/dV block "
+                f"and rows a dQ block {tuple(out)} do not match the "
+                f"wrapper's {want}")
+        _BWD_LIB = lib
+    return _BWD_LIB
+
+
+def bwd_resources(dtype: torch.dtype, d: int) -> Tuple[int, int, int]:
+    """(dynamic shared memory of a block in bytes, registers a thread of
+    the dK/dV kernel, of the dQ kernel) of the backward for ``dtype`` at
+    head dim ``d``."""
+    out = (ctypes.c_int * 3)()
+    rc = _bwd_lib().flash_attention_bwd_resources(_DTYPES[dtype], d, out)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd resources: CUDA error {rc}")
+    return out[0], out[1], out[2]
 
 
 def mma_resources(d: int) -> Tuple[int, int]:
@@ -182,20 +256,9 @@ def _tickets(dev: torch.device, stream: int, n: int) -> int:
     return held[1]
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0,
-                    q_offset: int = 0) -> torch.Tensor:
-    """q: [B, T, H, D]; k, v: [B, S, KV, D] → [B, T, H, D].
-
-    Query row t sits at position ``q_offset + t``: ``causal`` lets it see
-    keys up to that position, ``window`` > 0 only the last ``window`` of
-    them.  Every key of k is valid otherwise (pass a prefix view of a
-    cache to mask its unwritten tail)."""
+def _check(q, k, v, window) -> None:
+    """Device, shape, head-dim and dtype checks of a CUDA call."""
     dev = q.device
-    if (dev.type == "cpu" and k.device.type == "cpu"
-            and v.device.type == "cpu"):
-        return ref.attention_ref(q, k, v, causal=causal, window=window,
-                                 q_offset=q_offset)
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError(f"flash_attention operands must lie together on "
                          f"the CPU or on one CUDA device, got "
@@ -205,7 +268,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"[B, S, KV, D], got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, t, h, d = q.shape
-    s, kvh = k.shape[1], k.shape[2]
+    kvh = k.shape[2]
     if k.shape[0] != b or k.shape[3] != d or h % kvh:
         raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not fit "
                          f"q {tuple(q.shape)} (same B and D, KV dividing H)")
@@ -218,14 +281,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not 0 < b <= 65535 or window < 0:
         raise ValueError(f"flash_attention takes 0 < B <= 65535 and "
                          f"window >= 0, got B={b}, window={window}")
+
+
+def _stream(dev: torch.device) -> int:
+    return (_RAW_STREAM(dev.index) if _RAW_STREAM is not None
+            else torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _launch(q, k, v, causal: bool, window: int, q_offset: int, route: str,
+            with_lse: bool):
+    """One forward launch on CUDA operands already checked → (out, the
+    log-sum-exp [B, H, T] float32 where ``with_lse``, else None)."""
+    b, t, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
     lib = _lib()
-    route = _route(q.dtype, t, d)
     q, qs, qp = _operand(q)
     k, ks, kp = _operand(k)
     v, vs, vp = _operand(v)
     out = q.new_empty((b, t, h, d))
-    stream = (_RAW_STREAM(dev.index) if _RAW_STREAM is not None
-              else torch.cuda.current_stream(dev).cuda_stream)
+    lse = q.new_empty((b, h, t), dtype=torch.float32) if with_lse else None
+    dev = q.device
+    stream = _stream(dev)
     splits, kps, ws, tickets = 1, 0, 0, 0
     if route == "split":
         rows = t * (h // kvh)
@@ -240,7 +316,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         qp, kp, vp, out.data_ptr(), ws, tickets, stream, qs[0], qs[1], qs[2],
         ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], _ROUTE_IDS[route],
         _DTYPES[q.dtype], b, t, s, h, kvh, d, causal, window, q_offset,
-        splits, kps, _SCALE[d])
+        splits, kps, _SCALE[d], 0 if lse is None else lse.data_ptr())
     if dev.index == torch.cuda.current_device():
         rc = lib.flash_attention_launch(packed)
     else:
@@ -251,4 +327,114 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"CUDA error {rc}")
     _LAUNCHES["flash_attention"] += 1
     _ROUTES[route] += 1
-    return out
+    return out, lse
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    q_offset: int = 0) -> torch.Tensor:
+    """q: [B, T, H, D]; k, v: [B, S, KV, D] → [B, T, H, D].
+
+    Query row t sits at position ``q_offset + t``: ``causal`` lets it see
+    keys up to that position, ``window`` > 0 only the last ``window`` of
+    them.  Every key of k is valid otherwise (pass a prefix view of a
+    cache to mask its unwritten tail).  Where autograd needs a gradient
+    the call goes through :class:`FlashAttention`."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, q_offset)
+    if (q.device.type == "cpu" and k.device.type == "cpu"
+            and v.device.type == "cpu"):
+        return ref.attention_ref(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset)
+    _check(q, k, v, window)
+    return _launch(q, k, v, causal, window, q_offset,
+                   _route(q.dtype, q.shape[1], q.shape[3]), False)[0]
+
+
+def _check_grad_shape(q, k, q_offset: int) -> None:
+    if q.shape[1] != k.shape[1] or q_offset != 0:
+        raise NotImplementedError(
+            f"flash_attention serves a gradient for self-attention only (T "
+            f"== S keys, q_offset 0), got T={q.shape[1]}, S={k.shape[1]}, "
+            f"q_offset={q_offset}: no kernel computes the gradient of a "
+            f"step against a cache (the split route serves no gradient)")
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with a gradient: the forward saves O and the per-row
+    log-sum-exp, the backward is :func:`flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, q_offset: int):
+        _check_grad_shape(q, k, q_offset)
+        if q.device.type == "cpu" and k.device.type == "cpu" \
+                and v.device.type == "cpu":
+            out, lse = ref.attention_fwd_ref(q, k, v, causal=causal,
+                                             window=window, q_offset=q_offset)
+        else:
+            _check(q, k, v, window)
+            out, lse = _launch(q, k, v, causal, window, q_offset,
+                               _grad_route(q.dtype, q.shape[3]), True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, window, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, q_offset = ctx.mask
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
+                                         causal=causal, window=window,
+                                         q_offset=q_offset)
+        return dq, dk, dv, None, None, None
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x contiguous with a 16-byte aligned start (copied only where not)."""
+    if not x.is_contiguous():
+        return x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+                        window: int = 0, q_offset: int = 0):
+    """The gradients (dq, dk, dv) of attention for ``dout`` [B, T, H, D],
+    from the forward's operands, its output and its log-sum-exp ``lse``
+    [B, H, T] float32.  On CPU tensors the plain backward of ``ref.py``;
+    on CUDA tensors the kernels of ``flash_attention_bwd.cu`` or an error
+    — no fallback."""
+    ops = (q, k, v, out, lse, dout)
+    if all(x.device.type == "cpu" for x in ops):
+        return ref.attention_bwd_ref(q, k, v, out, lse, dout, causal=causal,
+                                     window=window, q_offset=q_offset)
+    _check(q, k, v, window)
+    _check_grad_shape(q, k, q_offset)
+    dev = q.device
+    b, t, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    if any(x.device != dev for x in ops):
+        raise ValueError("flash_attention_bwd operands must lie on one device")
+    if out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype \
+            or lse.shape != (b, h, t) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd takes out and dout like q "
+                         f"{tuple(q.shape)} {q.dtype} and lse [B, H, T] "
+                         f"float32, got {tuple(out.shape)} {out.dtype}, "
+                         f"{tuple(dout.shape)}, {tuple(lse.shape)} {lse.dtype}")
+    lib = _bwd_lib()
+    q, k, v, out, dout = (_aligned(x) for x in (q, k, v, out, dout.to(q.dtype)))
+    lse = lse.contiguous()
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=dev)
+    packed = _BWD_LAUNCH.pack(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), _stream(dev), _DTYPES[q.dtype], b, t,
+        s, h, kvh, d, causal, window, q_offset, _SCALE[d])
+    with torch.cuda.device(dev):
+        rc = lib.flash_attention_bwd_launch(packed)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention backward kernel launch failed: "
+                           f"CUDA error {rc}")
+    _BWD_LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv

@@ -248,7 +248,10 @@ def embed_spec(cfg) -> Dict[str, Spec]:
 
 
 def embed(p, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    return p["tok"][tokens]
+    """The rows of the table for ``tokens`` (``F.embedding``: its gradient
+    on the card sums each row's contributions in a fixed order, where
+    indexing's would add them with atomics)."""
+    return F.embedding(tokens, p["tok"])
 
 
 def unembed(p, cfg, x: torch.Tensor) -> torch.Tensor:

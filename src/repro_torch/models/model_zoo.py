@@ -3,13 +3,14 @@ the families the port runs (dense, ssm).
 
 ``spec(cfg)`` → parameter Spec tree; ``init`` → the model's parameters as
 an ``nn.Module``; ``forward`` → logits; ``cache_spec`` / ``decode_step`` →
-the serving path.  The loss and ``input_specs`` belong to training and
-the dry-run, which are not ported yet.
+the serving path; ``next_token_loss`` / ``loss_fn`` → the training loss
+(dense family only: the ssm family's SSD scan has no backward yet).
+``input_specs`` belongs to the dry-run, which is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -35,9 +36,24 @@ def spec(cfg: ModelConfig):
     return module_for(cfg).spec(cfg)
 
 
-def build(cfg: ModelConfig, tree: Dict[str, Any]) -> torch.nn.Module:
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise for a family the port cannot train: only the dense family's
+    kernels have backward kernels (the SSD scan's is the next slice)."""
+    module_for(cfg)
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"training runs the dense family only; {cfg.name} ({cfg.family}) "
+            f"needs a backward of the SSD scan kernel, the next slice of the "
+            f"port (ROADMAP.md)")
+
+
+def build(cfg: ModelConfig, tree: Dict[str, Any], *,
+          trainable: bool = False) -> torch.nn.Module:
     """The model's parameters as a module of its family's class, from a
-    tree of tensors."""
+    tree of tensors (sharing their storage); frozen unless ``trainable``."""
+    if trainable:
+        check_trainable(cfg)
+        return module_for(cfg).Model(cfg, tree, trainable=True)
     return module_for(cfg).Model(cfg, tree)
 
 
@@ -62,6 +78,47 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, *,
                 backend: Optional[str] = None):
     return module_for(cfg).decode_step(params, cfg, tokens, cache,
                                        backend=backend)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor,
+                    text_offset: int = 0) -> torch.Tensor:
+    """Mean cross-entropy of predicting tokens[:, 1:] from logits.
+
+    ``text_offset`` skips a non-text prefix in the logits (a view).  As in
+    the reference, a position mask takes the place of a slice, so no [B,
+    T−1, V] copy of the logits is made, the reductions run in float32 from
+    the logits' own dtype, and the max subtracted before ``exp`` carries
+    no gradient."""
+    if text_offset:
+        logits = logits[:, text_offset:]
+    b, t, v = logits.shape
+    # shifted targets; final position masked out
+    tgt = torch.cat([tokens[:, 1:],
+                     torch.zeros((b, 1), dtype=tokens.dtype,
+                                 device=tokens.device)], dim=1)
+    mask = (torch.arange(t, device=logits.device) < t - 1).float()[None, :]
+    lf = logits.float()
+    m = lf.detach().amax(-1, keepdim=True)
+    logz = m[..., 0] + torch.log(torch.exp(lf - m).sum(-1))
+    gold = torch.gather(logits, -1, tgt[..., None].long())[..., 0]
+    nll = (logz - gold.float()) * mask
+    return nll.sum() / mask.sum() / b
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
+            backend: Optional[str] = None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """→ (the next-token loss of ``batch``, {"loss": it}).  The dense
+    family only; any other raises ``NotImplementedError`` on every
+    device."""
+    check_trainable(cfg)
+    logits = forward(params, cfg, batch, backend=backend)
+    loss = next_token_loss(logits, batch["tokens"])
+    return loss, {"loss": loss}
 
 
 def make_batch(cfg: ModelConfig, *, seq_len: int, global_batch: int,

@@ -15,6 +15,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from ..tree import leaves, tree_map
+
 
 @dataclasses.dataclass(frozen=True)
 class Spec:
@@ -26,22 +28,6 @@ class Spec:
 
 def is_spec(x) -> bool:
     return isinstance(x, Spec)
-
-
-def _map(tree, fn):
-    """Apply ``fn`` to every leaf of a tree of dicts and lists, in the
-    order of sorted dict keys (the order the JAX package flattens in)."""
-    if isinstance(tree, dict):
-        return {k: _map(tree[k], fn) for k in sorted(tree)}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(v, fn) for v in tree)
-    return fn(tree)
-
-
-def _leaves(tree):
-    out = []
-    _map(tree, out.append)
-    return out
 
 
 def init_tree(tree, generator: Optional[torch.Generator] = None,
@@ -69,18 +55,33 @@ def init_tree(tree, generator: Optional[torch.Generator] = None,
                         device=generator.device, dtype=torch.float32)
         return (x * spec.scale).to(device=device, dtype=spec.dtype)
 
-    return _map(tree, mk)
+    return tree_map(mk, tree)
 
 
-def param_dict(tree: Dict[str, torch.Tensor]) -> nn.ParameterDict:
-    """A flat dict of tensors as frozen parameters (inference only)."""
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+def param_dict(tree: Dict[str, torch.Tensor], trainable: bool = False
+               ) -> nn.ParameterDict:
+    """A flat dict of tensors as parameters: frozen (inference) unless
+    ``trainable``.  Each parameter shares its tensor's storage."""
+    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=trainable)
                              for k, v in tree.items()})
 
 
+def tree_of(module: nn.Module):
+    """A model's parameters as the tree it was built from: a
+    ``ParameterDict`` as a dict, a ``ModuleList`` as a list, any other
+    module as a dict of its children and its own parameters."""
+    if isinstance(module, nn.ParameterDict):
+        return dict(module.items())
+    if isinstance(module, nn.ModuleList):
+        return [tree_of(m) for m in module]
+    out = {k: tree_of(m) for k, m in module.named_children()}
+    out.update(module.named_parameters(recurse=False))
+    return out
+
+
 def count_params(tree) -> int:
-    return sum(math.prod(s.shape) for s in _leaves(tree) if is_spec(s))
+    return sum(math.prod(s.shape) for s in leaves(tree) if is_spec(s))
 
 
 def cast_tree(tree, dtype: torch.dtype):
-    return _map(tree, lambda a: a.to(dtype) if a.dtype != dtype else a)
+    return tree_map(lambda a: a.to(dtype) if a.dtype != dtype else a, tree)

@@ -6,8 +6,12 @@ with parameter names that follow the reference's tree keys
 (``layers.3.attn.wq``, ``layers.3.ffn.wi_gate``, ``final_norm.scale``,
 ``embed.tok``), so carrying weights across is a name map
 (:func:`repro_torch.core.convert.params_from_arrays`).  The reference's
-layer ``scan`` and ``fori_loop`` become Python loops.  The MoE and VLM
-variants are not ported yet (ROADMAP.md).
+layer ``scan`` and ``fori_loop`` become Python loops; where ``cfg.remat``
+and autograd records, each layer of ``forward`` runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
+scan body with nothing saved): its activations are recomputed in the
+backward, through the same kernels.  The MoE and VLM variants are not
+ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_backend
 from . import layers as L
@@ -52,31 +57,38 @@ def spec(cfg) -> Dict[str, Any]:
 class Block(nn.Module):
     """One pre-norm layer: attention and MLP, each around a residual."""
 
-    def __init__(self, tree: Dict[str, Dict[str, torch.Tensor]]):
+    def __init__(self, tree: Dict[str, Dict[str, torch.Tensor]],
+                 trainable: bool = False):
         super().__init__()
-        self.attn_norm = param_dict(tree["attn_norm"])
-        self.attn = param_dict(tree["attn"])
-        self.mlp_norm = param_dict(tree["mlp_norm"])
-        self.ffn = param_dict(tree["ffn"])
+        self.attn_norm = param_dict(tree["attn_norm"], trainable)
+        self.attn = param_dict(tree["attn"], trainable)
+        self.mlp_norm = param_dict(tree["mlp_norm"], trainable)
+        self.ffn = param_dict(tree["ffn"], trainable)
 
 
 class Transformer(nn.Module):
     """The parameters of a dense decoder, built from an initialised tree
-    (``params.init_tree(spec(cfg), ...)``)."""
+    (``params.init_tree(spec(cfg), ...)``); frozen unless ``trainable``."""
 
-    def __init__(self, cfg, tree: Dict[str, Any]):
+    def __init__(self, cfg, tree: Dict[str, Any], trainable: bool = False):
         super().__init__()
         _check_family(cfg)
         if len(tree["layers"]) != cfg.n_layers:
             raise ValueError(f"tree has {len(tree['layers'])} layers, config "
                              f"{cfg.name} {cfg.n_layers}")
-        self.embed = param_dict(tree["embed"])
-        self.layers = nn.ModuleList(Block(t) for t in tree["layers"])
-        self.final_norm = param_dict(tree["final_norm"])
+        self.embed = param_dict(tree["embed"], trainable)
+        self.layers = nn.ModuleList(Block(t, trainable)
+                                    for t in tree["layers"])
+        self.final_norm = param_dict(tree["final_norm"], trainable)
 
 
 #: The family's model class, for ``model_zoo.build``.
 Model = Transformer
+
+
+def _layer(p: Block, cfg, x, positions, backend: str) -> torch.Tensor:
+    """One layer of the forward (the unit that remat recomputes)."""
+    return _block(p, cfg, x, positions=positions, backend=backend)[0]
 
 
 def _block(p: Block, cfg, x, *, positions, backend: str, cache=None):
@@ -89,19 +101,32 @@ def _block(p: Block, cfg, x, *, positions, backend: str, cache=None):
     return x, new_cache
 
 
-@torch.no_grad()
 def forward(params: Transformer, cfg, batch: Dict[str, torch.Tensor], *,
             backend: Optional[str] = None) -> torch.Tensor:
-    """Prefill forward → logits [B, T, vocab].  ``backend=None`` → the
-    kernels on a CUDA device, their plain versions on the CPU."""
+    """Train / prefill forward → logits [B, T, vocab].  ``backend=None`` →
+    the kernels on a CUDA device, their plain versions on the CPU.
+
+    Differentiable: with trainable parameters and grad mode on, autograd
+    records it (the kernels through their ``autograd.Function``s), each
+    layer under ``torch.utils.checkpoint`` where ``cfg.remat`` and some
+    parameter requires grad.  Serving calls it under
+    ``torch.no_grad()``."""
     _check_family(cfg)
     tokens = batch["tokens"]
     backend = resolve_backend(backend, tokens.device)
     x = L.embed(params.embed, cfg, tokens)
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)[None, :]
+    # remat only where autograd records: frozen parameters under grad mode
+    # run the layers plainly, as under torch.no_grad()
+    remat = cfg.remat and torch.is_grad_enabled() and (
+        x.requires_grad or any(p.requires_grad for p in params.parameters()))
     for lp in params.layers:
-        x, _ = _block(lp, cfg, x, positions=positions, backend=backend)
+        if remat:
+            x = checkpoint(_layer, lp, cfg, x, positions, backend,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _layer(lp, cfg, x, positions, backend)
     x = L.apply_norm(params.final_norm, cfg, x, backend=backend)
     return L.unembed(params.embed, cfg, x)
 

@@ -220,3 +220,58 @@ def test_build_key_follows_source(monkeypatch, tmp_path):
     assert "--fmad=false" in seen[0] and "arch=compute_90a,code=sm_90a" in \
         seen[0]
     assert not list((tmp_path / "build").rglob("*.tmp"))
+
+
+#: The training path: each imports with jax absent and nothing of ``repro``
+#: (the two tests at the top walk every module).
+TRAIN_MODULES = ("repro_torch.tree", "repro_torch.data",
+                 "repro_torch.data.pipeline", "repro_torch.optim",
+                 "repro_torch.optim.adamw", "repro_torch.optim.adafactor",
+                 "repro_torch.optim.clip", "repro_torch.optim.schedule",
+                 "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
+                 "repro_torch.ft.supervisor", "repro_torch.launch.steps",
+                 "repro_torch.launch.train")
+
+
+def test_train_modules_are_walked():
+    assert set(TRAIN_MODULES) <= set(_modules())
+    files = {PKG.parent / (m.replace(".", "/") + ".py") for m in TRAIN_MODULES}
+    files = {f if f.exists() else f.with_suffix("") / "__init__.py"
+             for f in files}
+    assert files <= set(PORT_FILES)
+
+
+def test_train_entry_points_raise_without_a_card(no_card):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps, train
+
+    cfg = get_config("qwen2-0.5b").smoke()
+    for call in (lambda: steps.build_train_step(cfg, seq_len=8,
+                                                global_batch=2),
+                 lambda: steps.build_train_step(cfg, seq_len=8,
+                                                global_batch=2,
+                                                device="cuda"),
+                 lambda: train.main(["--steps", "1"])):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        steps.build_train_step(cfg, seq_len=8, global_batch=2, device="cpu",
+                               backend="cuda")
+
+
+def test_backward_wrappers_reject_other_devices():
+    """A backward on operands off the CPU that no kernel takes raises; it
+    never runs the plain backward instead."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rmsnorm import ops as rms
+
+    meta = dict(device="meta")
+    q = torch.empty(1, 16, 2, 64, dtype=torch.bfloat16, **meta)
+    lse = torch.empty(1, 2, 16, **meta)
+    with pytest.raises(ValueError, match="CPU or on one CUDA device"):
+        fa.flash_attention_bwd(q, q, q, q, lse, q)
+    x = torch.empty(4, 32, **meta)
+    with pytest.raises(ValueError, match="CPU or on one CUDA device"):
+        rms.rmsnorm_bwd(x, torch.empty(32, **meta), x)
+    assert fa.backward_launch_counts() == {"flash_attention_bwd": 0}
+    assert rms.backward_launch_counts() == {"rmsnorm_bwd": 0}
