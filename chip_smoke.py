@@ -78,7 +78,9 @@ Phases, each fatal on any error:
    config's 2 microbatches, remat, f32 AdamW state): hold the flash
    attention and RMSNorm backward kernels against their plain backwards
    on the card (``FLASH_BWD_CASES``, ``RMSNORM_BWD_CASES``; f32 and bf16,
-   tolerance tol x max|g| + tol x |g|, the same bits on a second call),
+   the flash backward's f32 on its CUDA-core route and bf16 on its
+   tensor-core route, tolerance tol x max|g| + tol x |g|, the same bits
+   on a second call),
    the log-sum-exp forward's O bit for bit against the same route without
    it; one step's loss, grad norm and every gradient leaf on the kernels
    against the plain versions from the same weights and batch, within
@@ -87,9 +89,12 @@ Phases, each fatal on any error:
    just after and no plain version called; 8 steps through
    ``repro_torch.launch.train.main`` (the loss falls) and again with a
    checkpoint every 4 and a failure at step 5 (the final loss within
-   1e-4); the step's time by events, its tokens/s, a trace, and each
-   backward kernel's time beside its plain version, its library call and
-   its bound; print the ``train`` line, then the ``kernels`` line.
+   1e-4); the step's time by events, its tokens/s, a trace (the flash
+   backward's share of the device time, by kernel), and each backward
+   kernel's time beside its plain version, its library call and its
+   bound (the flash backward also on the device, split by kernel, beside
+   SDPA's backward on the device; each backward instance's registers and
+   spill bytes); print the ``train`` line, then the ``kernels`` line.
 
 Float32 matrix products run in full float32: TF32 is switched off for
 matmuls and cuDNN.  The last line of standard output is
@@ -2338,6 +2343,7 @@ def reset_lm_counts() -> None:
     fa, rms, _ = _lm_kernel_ops()
     fa.reset_route_counts()
     fa.reset_backward_launch_counts()
+    fa.reset_backward_route_counts()
     rms.reset_backward_launch_counts()
 
 
@@ -3294,11 +3300,13 @@ TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 4, 5
 #: run's: the JAX package's own tolerance (``tests/test_system.py:29``).
 RECOVERY_RTOL = 1e-4
 #: Flash backward cases (b, t, h, kv, d, causal, window, label); each runs
-#: in f32 and bf16.
+#: in f32 (the fma route) and bf16 (the mma route).
 FLASH_BWD_CASES = (
     (4, 1024, 14, 2, 64, True, 0, "train shape T=1024 causal"),
     (2, 512, 16, 2, 128, True, 0, "D=128 T=512 causal"),
     (2, 512, 14, 2, 64, True, 96, "window T=512 w=96"),
+    (2, 512, 14, 2, 64, True, 40, "window T=512 w=40 (below a key tile)"),
+    (2, 80, 14, 2, 64, True, 0, "T=80 causal (a ragged second tile)"),
     (2, 1000, 14, 2, 64, True, 0, "ragged T=1000 causal"),
     (2, 256, 4, 4, 64, True, 0, "G=1 T=256 causal"),
     (2, 256, 14, 2, 64, False, 0, "T=256 full"),
@@ -3355,8 +3363,14 @@ def train_kernel_checks(dev) -> dict:
                      f"{lse_err}")
             run = lambda: fa.flash_attention_bwd(                # noqa: E731
                 q, k, v, out, lse, dout, causal=causal, window=window)
+            fa.reset_backward_route_counts()
             got = run()
             torch.cuda.synchronize()
+            bwd_route = fa._bwd_route(dtype, d)
+            if fa.backward_route_counts() != {"fma": 0, "mma": 0,
+                                              bwd_route: 1}:
+                fail(f"flash_attention_bwd {label} {dtype}: backward routes "
+                     f"{fa.backward_route_counts()}, expected one {bwd_route}")
             want = fa_ref.attention_bwd_ref(q, k, v, out, lse, dout,
                                             causal=causal, window=window)
             err = max(_grad_held(f"flash_attention_bwd {label} {dtype} {n}",
@@ -3368,7 +3382,8 @@ def train_kernel_checks(dev) -> dict:
                      f"on a second call")
             log(f"[8] flash_attention_bwd {label} {dtype}: forward route "
                 f"{route} (O bit-equal without the log-sum-exp; lse max abs "
-                f"err {lse_err:.3e}), dq/dk/dv max abs err {err:.3e} "
+                f"err {lse_err:.3e}), backward route {bwd_route}, dq/dk/dv "
+                f"max abs err {err:.3e} "
                 f"(tolerance {tol} x max|g| + {tol} x |g|), same bits twice")
             errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], err)
             errs["lse"] = max(errs["lse"], lse_err)
@@ -3475,7 +3490,9 @@ def train_step_check(cfg, dev, card) -> dict:
                                             microbatches=m, backend="cuda")
         torch.cuda.synchronize()
     counts = dict(lm_counts(), **{f"flash_{r}": n
-                                  for r, n in flash_routes().items()})
+                                  for r, n in flash_routes().items()},
+                  **{f"flash_bwd_{r}": n for r, n in
+                     _lm_kernel_ops()[0].backward_route_counts().items()})
     loss_t, grads_t = ST.loss_and_grads(params, cfg, batch, microbatches=m,
                                         backend="torch")
     params32 = tree_map(lambda p: p.float(), params)
@@ -3517,6 +3534,7 @@ def train_step_check(cfg, dev, card) -> dict:
     L = cfg.n_layers
     want = {"flash_attention": 2 * L * m, "flash_mma": 2 * L * m,
             "flash_fma": 0, "flash_split": 0, "flash_attention_bwd": L * m,
+            "flash_bwd_fma": 0, "flash_bwd_mma": L * m,
             "rmsnorm": (2 * L + 1 + 2 * L) * m, "rmsnorm_bwd": (2 * L + 1) * m,
             "ssd": 0}
     if counts != want:
@@ -3597,6 +3615,8 @@ def train_times(cfg, dev, card) -> tuple:
                    for i in range(TRAIN_STEPS + 2)]
     finally:
         pipe.close()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     step_ms = []
     for i in range(TRAIN_STEPS):
@@ -3613,11 +3633,20 @@ def train_times(cfg, dev, card) -> tuple:
     prof = profile_ms(lambda: step_fn(params, state, batches[TRAIN_STEPS]),
                       steps=1, warmup=False,
                       match=("flash_bwd", "flash_mma", "rmsnorm_bwd",
-                             "rmsnorm_warp", "gemm", "Kernel2"))
+                             "rmsnorm_warp", "gemm", "Kernel2")
+                      + FLASH_BWD_KERNELS)
     log(f"[8] train step on the kernels: {[round(x, 3) for x in step_ms]} ms "
         f"by events; median of steps 3-{TRAIN_STEPS} {med:.3f} ms, "
         f"{tokens / med * 1e3:.1f} tokens/s; peak device memory "
-        f"{peak / 1e9:.2f} GB ({card})")
+        f"{peak / 1e9:.2f} GB, {held / 1e9:.2f} GB of it held before the "
+        f"first step ({card})")
+    fb = prof["matched_ms"]["flash_bwd"]
+    log(f"[8] the flash backward in the traced step: {fb:.3f} ms of "
+        f"{prof['device_ms']:.3f} ms on the device "
+        f"({100 * fb / max(prof['device_ms'], 1e-9):.1f}%; device busy "
+        f"{100 * prof['busy_share']:.1f}%): "
+        + ", ".join(f"{m} {prof['matched_ms'][m]:.3f} ms"
+                    for m in FLASH_BWD_KERNELS) + f" ({card})")
     log_profiles("8", cfg.name, {"train step": prof}, card)
     del params, state, batches
     torch.cuda.empty_cache()
@@ -3639,14 +3668,30 @@ def train_times(cfg, dev, card) -> tuple:
     # q, o, dO read and dq written; k, v read and dk, dv written; lse read
     n_bytes = 2 * (4 * b * t * h * d + 4 * b * t * kvh * d) + 4 * b * h * t
     b_ms, b_by = bound(n_bytes, 10 * d * pairs, BF16_FLOPS)
+    kern = lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout)  # noqa
+    lib = lambda: torch.autograd.grad(                             # noqa
+        lib_out, (qt, kt, vt), lib_dout, retain_graph=True)
+    # the device time of a call by kernel (each launches once a call), and
+    # SDPA's backward on the device: its event time holds autograd's host work
+    split = profile_ms(kern, steps=20, match=FLASH_BWD_KERNELS)
+    lib_prof = traced_call(lib, steps=20)
+    per = split["matched_per_launch_ms"]
+    grids = fa.bwd_plan(fa._bwd_route(bf16, d), b, t, t, h, kvh, d)["grids"]
     times = {"flash_attention_bwd": dict(
-        shape=[b, t, h, kvh, d], causal=True,
-        ms=cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout)),
+        shape=[b, t, h, kvh, d], causal=True, route=fa._bwd_route(bf16, d),
+        ms=cuda_ms(kern),
         plain_ms=cuda_ms(lambda: fa_ref.attention_bwd_ref(q, k, v, out, lse,
                                                           dout)),
-        library_ms=cuda_ms(lambda: torch.autograd.grad(
-            lib_out, (qt, kt, vt), lib_dout, retain_graph=True)),
-        bound_ms=b_ms, bound_by=b_by, bytes=n_bytes, ops=10 * d * pairs)}
+        library_ms=cuda_ms(lib), bound_ms=b_ms, bound_by=b_by,
+        bytes=n_bytes, ops=10 * d * pairs,
+        device_ms=sum(per[m] for m in FLASH_BWD_KERNELS
+                      if split["matched_ms"][m] > 0),
+        device_split={m: per[m] for m in FLASH_BWD_KERNELS},
+        # each kernel of the plan launches once a call (the tracer can miss
+        # launches of a window; a time per launch does not depend on it)
+        grids=grids, device_launches=len(grids),
+        library_device_ms=lib_prof["device_ms"],
+        library_device_launches=lib_prof["kernel_launches"])}
     del q, k, v, dout, out, lse, qt, kt, vt, lib_out, lib_dout
     rows, dm = b * t, cfg.d_model
     x = _rand((rows, dm), g, bf16, dev)
@@ -3667,9 +3712,23 @@ def train_times(cfg, dev, card) -> tuple:
     del x, gy, xl, sl, y
     torch.cuda.empty_cache()
     log_times("8", times, card)
+    r = times["flash_attention_bwd"]
+    log(f"[8] flash_attention_bwd {r['route']} route on the device, ms a "
+        f"launch: " + ", ".join(f"{m} {ms:.4f}"
+                                for m, ms in r["device_split"].items())
+        + f"; {r['device_launches']:.0f} device launches a call (grids "
+        f"{r['grids']}); SDPA's "
+        f"backward {r['library_device_ms']:.4f} ms on the device in "
+        f"{r['library_device_launches']:.0f} launches ({card})")
     step = dict(step_ms=step_ms, median_step_ms=med,
-                tokens_per_s=tokens / med * 1e3, peak_bytes=peak)
+                tokens_per_s=tokens / med * 1e3, peak_bytes=peak,
+                held_bytes=held)
     return step, prof, times
+
+
+#: Substrings of the flash backward's device kernels' names (either route).
+FLASH_BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_reduce",
+                     "flash_bwd_dq")
 
 
 def train_path(dev, card) -> tuple:
@@ -3690,10 +3749,13 @@ def train_path(dev, card) -> tuple:
     runs = trainer_runs(card)
     timing, prof, times = train_times(cfg, dev, card)
     builds = {"flash_attention_bwd": {
-        str(dt).split(".")[1] + f" d{d}": fa.bwd_resources(dt, d)
+        f"{fa._bwd_route(dt, d)} d{d}": fa.bwd_resources(dt, d)
         for dt in (torch.float32, torch.bfloat16) for d in fa.HEAD_DIMS}}
-    log(f"[8] flash backward (shared bytes, dK/dV registers, dQ registers): "
-        f"{builds['flash_attention_bwd']}")
+    for key, kernels in builds["flash_attention_bwd"].items():
+        log(f"[8] flash backward {key} (shared bytes, registers, spill "
+            f"bytes): " + "; ".join(
+                f"{n} {r['shared']}, {r['registers']}, {r['spill_bytes']}"
+                for n, r in kernels.items()))
     log("train " + json.dumps({
         "card": card, "model": cfg.name, "seq_len": TRAIN_T,
         "global_batch": TRAIN_B, "microbatches": cfg.microbatches,

@@ -30,13 +30,18 @@ requiring a gradient) the call goes through :class:`FlashAttention`, an
 per-row log-sum-exp (``"mma"`` for bf16 at a head dim of ``HEAD_DIMS``,
 else ``"fma"``, at any T; never ``"split"``), and its backward is
 :func:`flash_attention_bwd`, the kernels of
-``src/repro_torch/csrc/flash_attention_bwd.cu`` on the card (one host
-call, three device launches) and the plain backward of ``ref.py`` on the
-CPU.  A gradient is served for self-attention only (T == S, q_offset 0:
-the training path); any other shape raises.  Under
+``src/repro_torch/csrc/flash_attention_bwd.cu`` on the card and the
+plain backward of ``ref.py`` on the CPU.  The backward has two routes, a
+pure function of (dtype, D) (:func:`_bwd_route`): bf16 ``"mma"``, every
+product on the tensor cores (four device launches: Delta, dK/dV
+partials per query head, their reduce over the heads of each kv head,
+dQ); float32 ``"fma"``, the CUDA-core kernels (three: Delta, dK/dV, dQ).
+Either is one host call.  A gradient is served for self-attention only
+(T == S, q_offset 0: the training path); any other shape raises.  Under
 ``torch.utils.checkpoint`` the recomputed forward takes the same route
 and gives the same bits.  ``backward_launch_counts()`` counts the
-backward calls that launched the kernels.
+backward calls that launched the kernels, ``backward_route_counts()``
+the same calls by route.
 """
 
 from __future__ import annotations
@@ -80,19 +85,30 @@ MAX_SPLITS = 16
 _LAUNCH = struct.Struct("<16q13ifq")
 
 BWD_SOURCE = _build.CSRC / "flash_attention_bwd.cu"
-#: The backward launcher's one argument: 11 int64 (addresses of q, k, v, o,
-#: dO, lse, the Delta workspace, dq, dk, dv; the stream), 10 int32 (dtype,
-#: sizes, flags), the scale, 4 bytes of padding.
-_BWD_LAUNCH = struct.Struct("<11q10if4x")
-#: Keys a dK/dV block and query rows a dQ block of the backward.
-BWD_KEYS = 32
-BWD_ROWS = 32
+#: The backward launcher's one argument: 13 int64 (addresses of q, k, v, o,
+#: dO, lse, the Delta workspace, dq, dk, dv, the mma route's dK and dV
+#: partials; the stream), 11 int32 (route, dtype, sizes, flags), the scale.
+_BWD_LAUNCH = struct.Struct("<13q11if")
+BWD_ROUTES = ("fma", "mma")
+_BWD_ROUTE_IDS = {r: i for i, r in enumerate(BWD_ROUTES)}
+#: Keys a dK/dV block and query rows a dQ block of each backward route.
+BWD_KEYS = {"fma": 32, "mma": 64}
+BWD_ROWS = {"fma": 32, "mma": 64}
+#: The mma route's query rows a dK/dV step (= keys a dQ step) by head dim:
+#: 32 at D 128, so the dK and dV accumulators fit in registers.
+BWD_STEP = {64: 64, 128: 32}
+#: Threads a block of the mma route's reduce, 4 columns a thread.
+BWD_REDUCE_THREADS = 256
+#: Device kernels of each backward route, in launch order.
+BWD_KERNELS = {"fma": ("delta", "dkdv", "dq"),
+               "mma": ("delta", "dkdv", "reduce", "dq")}
 
 _LIB = None
 _BWD_LIB = None
 _LAUNCHES: Dict[str, int] = {"flash_attention": 0}
 _BWD_LAUNCHES: Dict[str, int] = {"flash_attention_bwd": 0}
 _ROUTES: Dict[str, int] = dict.fromkeys(ROUTES, 0)
+_BWD_ROUTES: Dict[str, int] = dict.fromkeys(BWD_ROUTES, 0)
 # the split route's ticket counters by (device index, stream): (tensor,
 # address); each call leaves them at 0
 _TICKETS: Dict[Tuple[int, int], Tuple[torch.Tensor, int]] = {}
@@ -110,13 +126,23 @@ def reset_launch_counts() -> None:
 
 def backward_launch_counts() -> Dict[str, int]:
     """Backward calls that launched the kernels since the last
-    :func:`reset_backward_launch_counts` (one a call, three device
-    launches)."""
+    :func:`reset_backward_launch_counts` (one a call, whichever route)."""
     return dict(_BWD_LAUNCHES)
 
 
 def reset_backward_launch_counts() -> None:
     _BWD_LAUNCHES["flash_attention_bwd"] = 0
+
+
+def backward_route_counts() -> Dict[str, int]:
+    """Backward kernel calls by route since the last
+    :func:`reset_backward_route_counts` (CPU tensors count on none)."""
+    return dict(_BWD_ROUTES)
+
+
+def reset_backward_route_counts() -> None:
+    for r in BWD_ROUTES:
+        _BWD_ROUTES[r] = 0
 
 
 def route_counts() -> Dict[str, int]:
@@ -145,6 +171,38 @@ def _grad_route(dtype: torch.dtype, d: int) -> str:
     """The route of a forward whose gradient is needed: one that writes the
     log-sum-exp at any T (``"mma"`` for bf16, ``"fma"`` otherwise)."""
     return "mma" if dtype == torch.bfloat16 and d in HEAD_DIMS else "fma"
+
+
+def _bwd_route(dtype: torch.dtype, d: int) -> str:
+    """The backward kernels for q of ``dtype`` at head dim ``d``, by the
+    forward's rule (:func:`_grad_route`): ``"mma"`` (bf16, tensor cores)
+    or ``"fma"`` (float32, CUDA cores: its 2e-5 tolerance cannot be met
+    with bf16 products)."""
+    return _grad_route(dtype, d)
+
+
+def bwd_plan(route: str, b: int, t: int, s: int, h: int, kv: int,
+             d: int) -> Dict[str, object]:
+    """The device launches of one backward call, as the source computes
+    them: ``grids`` {kernel: grid (x, y, z)} in launch order (Delta a warp
+    a row, 4 a block; fma: dK/dV (key tiles, KV, B), dQ (row tiles, H, B);
+    mma: dK/dV (B H, key tiles), the reduce's blocks, dQ (B H, row
+    tiles)), ``keys`` and ``rows`` a dK/dV and a dQ block, ``step`` (mma:
+    rows a dK/dV step, keys a dQ step) and ``workspace``, the shape of
+    each of the mma route's fp32 dK and dV partials (None on fma)."""
+    keys, rows = BWD_KEYS[route], BWD_ROWS[route]
+    key_tiles, row_tiles = -(-s // keys), -(-t // rows)
+    grids = {"delta": (-(-(b * t * h) // 4), 1, 1)}
+    if route == "fma":
+        grids["dkdv"] = (key_tiles, kv, b)
+        grids["dq"] = (row_tiles, h, b)
+        return dict(grids=grids, keys=keys, rows=rows, step=None,
+                    workspace=None)
+    grids["dkdv"] = (b * h, key_tiles, 1)
+    grids["reduce"] = (-(-(b * s * kv * d // 4) // BWD_REDUCE_THREADS), 1, 1)
+    grids["dq"] = (b * h, row_tiles, 1)
+    return dict(grids=grids, keys=keys, rows=rows, step=BWD_STEP[d],
+                workspace=(b, s, h, d))
 
 
 def _splits(s: int, b: int, kv: int, rows: int) -> Tuple[int, int]:
@@ -188,27 +246,38 @@ def _bwd_lib():
             "flash_attention_bwd_launch": [ctypes.c_char_p],
             "flash_attention_bwd_constants": [p],
             "flash_attention_bwd_resources": [i32, i32, p]})
-        out = (ctypes.c_int * 3)()
+        out = (ctypes.c_int * 8)()
         lib.flash_attention_bwd_constants(out)
-        want = (_BWD_LAUNCH.size, BWD_KEYS, BWD_ROWS)
+        want = (_BWD_LAUNCH.size, BWD_KEYS["fma"], BWD_ROWS["fma"],
+                BWD_KEYS["mma"], BWD_ROWS["mma"], BWD_STEP[64],
+                BWD_STEP[128], BWD_REDUCE_THREADS)
         if tuple(out) != want:
             raise RuntimeError(
                 f"flash_attention_bwd.cu's BwdLaunch size, keys a dK/dV block "
-                f"and rows a dQ block {tuple(out)} do not match the "
+                f"and rows a dQ block (fma, mma), the mma steps (D 64, 128) "
+                f"and reduce threads {tuple(out)} do not match the "
                 f"wrapper's {want}")
         _BWD_LIB = lib
     return _BWD_LIB
 
 
-def bwd_resources(dtype: torch.dtype, d: int) -> Tuple[int, int, int]:
-    """(dynamic shared memory of a block in bytes, registers a thread of
-    the dK/dV kernel, of the dQ kernel) of the backward for ``dtype`` at
-    head dim ``d``."""
-    out = (ctypes.c_int * 3)()
-    rc = _bwd_lib().flash_attention_bwd_resources(_DTYPES[dtype], d, out)
+def bwd_resources(dtype: torch.dtype, d: int
+                  ) -> Dict[str, Dict[str, int]]:
+    """{kernel: {"shared": dynamic shared memory of a block in bytes,
+    "registers": a thread, "spill_bytes": local memory a thread
+    (``cudaFuncAttributes.localSizeBytes``)}} of each device kernel of the
+    backward route that serves ``dtype`` at head dim ``d``, in launch
+    order."""
+    route = _bwd_route(dtype, d)
+    names = BWD_KERNELS[route]
+    out = (ctypes.c_int * (3 * len(names)))()
+    rc = _bwd_lib().flash_attention_bwd_resources(_BWD_ROUTE_IDS[route], d,
+                                                  out)
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd resources: CUDA error {rc}")
-    return out[0], out[1], out[2]
+    return {n: dict(shared=out[3 * i], registers=out[3 * i + 1],
+                    spill_bytes=out[3 * i + 2])
+            for i, n in enumerate(names)}
 
 
 def mma_resources(d: int) -> Tuple[int, int]:
@@ -402,8 +471,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     """The gradients (dq, dk, dv) of attention for ``dout`` [B, T, H, D],
     from the forward's operands, its output and its log-sum-exp ``lse``
     [B, H, T] float32.  On CPU tensors the plain backward of ``ref.py``;
-    on CUDA tensors the kernels of ``flash_attention_bwd.cu`` or an error
-    — no fallback."""
+    on CUDA tensors the kernels of ``flash_attention_bwd.cu`` on the
+    route of :func:`_bwd_route`, or an error — no fallback."""
     ops = (q, k, v, out, lse, dout)
     if all(x.device.type == "cpu" for x in ops):
         return ref.attention_bwd_ref(q, k, v, out, lse, dout, causal=causal,
@@ -422,19 +491,31 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
                          f"float32, got {tuple(out.shape)} {out.dtype}, "
                          f"{tuple(dout.shape)}, {tuple(lse.shape)} {lse.dtype}")
     lib = _bwd_lib()
+    route = _bwd_route(q.dtype, d)
     q, k, v, out, dout = (_aligned(x) for x in (q, k, v, out, dout.to(q.dtype)))
     lse = lse.contiguous()
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     delta = torch.empty((b, h, t), dtype=torch.float32, device=dev)
+    work = bwd_plan(route, b, t, s, h, kvh, d)["workspace"]
+    wk = wv = None
+    if work is not None:   # each query head's dK and dV partials, fp32
+        wk, wv = (torch.empty(work, dtype=torch.float32, device=dev)
+                  for _ in range(2))
     packed = _BWD_LAUNCH.pack(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), _stream(dev), _DTYPES[q.dtype], b, t,
-        s, h, kvh, d, causal, window, q_offset, _SCALE[d])
-    with torch.cuda.device(dev):
+        dk.data_ptr(), dv.data_ptr(), 0 if wk is None else wk.data_ptr(),
+        0 if wv is None else wv.data_ptr(), _stream(dev),
+        _BWD_ROUTE_IDS[route], _DTYPES[q.dtype], b, t, s, h, kvh, d, causal,
+        window, q_offset, _SCALE[d])
+    if dev.index == torch.cuda.current_device():
         rc = lib.flash_attention_bwd_launch(packed)
+    else:
+        with torch.cuda.device(dev):
+            rc = lib.flash_attention_bwd_launch(packed)
     if rc != 0:
-        raise RuntimeError(f"flash_attention backward kernel launch failed: "
-                           f"CUDA error {rc}")
+        raise RuntimeError(f"flash_attention backward {route} kernel launch "
+                           f"failed: CUDA error {rc}")
     _BWD_LAUNCHES["flash_attention_bwd"] += 1
+    _BWD_ROUTES[route] += 1
     return dq, dk, dv

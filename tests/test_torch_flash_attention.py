@@ -193,6 +193,90 @@ def test_splits_tile_the_keys(s, b, kv, rows):
         assert (n, per) == ((13, 32) if s == 405 else (16, 64))
 
 
+def test_backward_route_is_a_function_of_dtype_and_head_dim():
+    """bf16 at a head dim of ``HEAD_DIMS`` takes the tensor-core backward,
+    float32 the CUDA-core one; on CPU tensors no kernel runs and no route
+    counts."""
+    for d in ops.HEAD_DIMS:
+        assert ops._bwd_route(torch.bfloat16, d) == "mma"
+        assert ops._bwd_route(torch.float32, d) == "fma"
+        assert ops.BWD_KERNELS[ops._bwd_route(torch.bfloat16, d)] == (
+            "delta", "dkdv", "reduce", "dq")
+    ops.reset_backward_route_counts()
+    q = torch.zeros(1, 32, 2, 64, dtype=torch.bfloat16, requires_grad=True)
+    ops.flash_attention(q, q, q).sum().backward()
+    assert ops.backward_route_counts() == {"fma": 0, "mma": 0}
+
+
+def _walk_pairs(route, t, d, causal, window):
+    """[key, row] masks of the pairs the plan's dK/dV blocks and dQ blocks
+    visit, by the kernels' own walk: a dK/dV block of ``keys`` keys takes
+    the rows from its first key's diagonal (rounded down to its step) to
+    the last row its last key's window reaches; a dQ block of ``rows``
+    rows the keys from its first row's window start (rounded down to its
+    step) to its last row's diagonal (T == S, q_offset 0)."""
+    plan = ops.bwd_plan(route, 1, t, t, 2, 1, d)
+    keys, rows = plan["keys"], plan["rows"]
+    step = plan["step"] or rows
+    kstep = plan["step"] or keys
+    dkdv = np.zeros((t, t), bool)
+    dq = np.zeros((t, t), bool)
+    for k0 in range(0, t, keys):
+        k_last = min(t, k0 + keys) - 1
+        t_begin = (k0 if causal else 0) // step * step
+        t_end = min(t, k_last + window) if window else t
+        if t_end > t_begin:
+            t_end = t_begin + -(-(t_end - t_begin) // step) * step
+            dkdv[k0:k_last + 1, t_begin:t_end] = True
+    for t0 in range(0, t, rows):
+        last = min(t, t0 + rows) - 1
+        k_end = last + 1 if causal else t
+        k_begin = max(0, t0 - window + 1) // kstep * kstep if window else 0
+        if k_end > k_begin:
+            k_end = k_begin + -(-(k_end - k_begin) // kstep) * kstep
+            dq[k_begin:k_end, t0:last + 1] = True
+    return plan, dkdv, dq
+
+
+@pytest.mark.parametrize("t", [1000, 80, 16, 1024])
+@pytest.mark.parametrize("d", ops.HEAD_DIMS)
+@pytest.mark.parametrize("route", ops.BWD_ROUTES)
+def test_backward_plan_covers_every_key_and_row(route, d, t):
+    """The backward's grids cover every key (dK/dV), row (dQ, Delta) and
+    reduced column once at ragged T, and the blocks' walks visit every
+    pair the causal or windowed mask lets through."""
+    b, h, kv = 2, 14, 2
+    plan = ops.bwd_plan(route, b, t, t, h, kv, d)
+    g = plan["grids"]
+    assert tuple(g) == tuple(ops.BWD_KERNELS[route])
+    keys, rows = plan["keys"], plan["rows"]
+    key_tiles = g["dkdv"][1] if route == "mma" else g["dkdv"][0]
+    row_tiles = g["dq"][1] if route == "mma" else g["dq"][0]
+    assert (key_tiles - 1) * keys < t <= key_tiles * keys
+    assert (row_tiles - 1) * rows < t <= row_tiles * rows
+    assert (g["delta"][0] - 1) * 4 < b * t * h <= g["delta"][0] * 4
+    if route == "mma":
+        assert g["dkdv"][0] == g["dq"][0] == b * h
+        assert plan["workspace"] == (b, t, h, d)
+        n = b * t * kv * d // 4
+        blocks = g["reduce"][0]
+        assert (blocks - 1) * ops.BWD_REDUCE_THREADS < n \
+            <= blocks * ops.BWD_REDUCE_THREADS
+        assert keys % plan["step"] == 0 and rows % plan["step"] == 0
+    else:
+        assert g["dkdv"][1:] == (kv, b) and g["dq"][1:] == (h, b)
+        assert plan["workspace"] is None
+    for causal, window in ((True, 0), (True, 40), (False, 0)):
+        _, dkdv, dq = _walk_pairs(route, t, d, causal, window)
+        key, row = np.arange(t)[:, None], np.arange(t)[None, :]
+        seen = np.ones((t, t), bool)
+        if causal:
+            seen &= key <= row
+        if window:
+            seen &= key > row - window
+        assert not (seen & ~dkdv).any() and not (seen & ~dq).any()
+
+
 CARD_CASES = [
     # (b, t, s, h, kv, d, causal, window, q_offset, cache_len)
     (4, 1, 1, 14, 2, 64, False, 0, 0, 0),           # decode prefixes

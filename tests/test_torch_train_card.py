@@ -51,7 +51,10 @@ def _rand(shape, dtype, dev, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [(2, 256, 14, 2, 64, True, 0),
                                   (1, 200, 8, 2, 128, True, 32),
-                                  (2, 16, 4, 4, 64, False, 0)], ids=str)
+                                  (2, 16, 4, 4, 64, False, 0),
+                                  (2, 1000, 14, 2, 64, True, 0),
+                                  (1, 512, 14, 2, 64, True, 40),
+                                  (2, 16, 14, 2, 64, True, 0)], ids=str)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 def test_flash_backward_kernel_matches_plain(case, dtype, cuda_device):
     b, t, h, kv, d, causal, window = case
@@ -61,11 +64,15 @@ def test_flash_backward_kernel_matches_plain(case, dtype, cuda_device):
     qa, ka, va = (x.clone().requires_grad_() for x in (q, k, v))
     fa.reset_backward_launch_counts()
     fa.reset_route_counts()
+    fa.reset_backward_route_counts()
     out = fa.flash_attention(qa, ka, va, causal=causal, window=window)
     out.backward(dout)
     torch.cuda.synchronize()
     assert fa.backward_launch_counts() == {"flash_attention_bwd": 1}
     assert fa.route_counts()[fa._grad_route(dtype, d)] == 1
+    route = "mma" if dtype == torch.bfloat16 else "fma"
+    assert fa._bwd_route(dtype, d) == route
+    assert fa.backward_route_counts() == {"fma": 0, "mma": 0, route: 1}
     _, lse = fa._launch(q, k, v, causal, window, 0,
                         fa._grad_route(dtype, d), True)
     want = fa_ref.attention_bwd_ref(q, k, v, out.detach(), lse, dout,
