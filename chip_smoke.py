@@ -80,21 +80,26 @@ Phases, each fatal on any error:
    on the card (``FLASH_BWD_CASES``, ``RMSNORM_BWD_CASES``; f32 and bf16,
    the flash backward's f32 on its CUDA-core route and bf16 on its
    tensor-core route, tolerance tol x max|g| + tol x |g|, the same bits
-   on a second call),
-   the log-sum-exp forward's O bit for bit against the same route without
-   it; one step's loss, grad norm and every gradient leaf on the kernels
-   against the plain versions from the same weights and batch, within
+   on a second call; the RMSNorm backward also on offset views of g and
+   of x, which must take its one-element width), the log-sum-exp
+   forward's O bit for bit against the same route without it; one step's
+   loss, grad norm and every gradient leaf on the kernels against the
+   plain versions from the same weights and batch, within
    max(2e-2, 2 x the rounding floor of the plain bf16 step against its
    float32 twin), with the launch counts set to 0 just before and read
    just after and no plain version called; 8 steps through
    ``repro_torch.launch.train.main`` (the loss falls) and again with a
    checkpoint every 4 and a failure at step 5 (the final loss within
    1e-4); the step's time by events, its tokens/s, a trace (the flash
-   backward's share of the device time, by kernel), and each backward
-   kernel's time beside its plain version, its library call and its
-   bound (the flash backward also on the device, split by kernel, beside
-   SDPA's backward on the device; each backward instance's registers and
-   spill bytes); print the ``train`` line, then the ``kernels`` line.
+   backward's share of the device time, by kernel; the RMSNorm
+   backward's, in all and a launch), and each backward kernel's time
+   beside its plain version, its library call and its bound (on the
+   device, split by kernel, beside SDPA's or ``F.rms_norm``'s autograd
+   backward on the device; the RMSNorm backward's host µs a call, and its
+   times also at mamba2-2.7b's widths [8192, 2560] and [8192, 5120];
+   each backward instance's registers and spill bytes, the RMSNorm
+   backward's static shared memory and blocks an SM); print the
+   ``train`` line, then the ``kernels`` line.
 
 Float32 matrix products run in full float32: TF32 is switched off for
 matmuls and cuDNN.  The last line of standard output is
@@ -234,11 +239,12 @@ def profile_ms(fn, steps: int, match: tuple = (), warmup: bool = True
     """Trace ``steps`` calls of fn with torch.profiler → wall ms per call,
     device kernel ms per call (kernels on one stream do not overlap, so
     their sum over the wall time is the device's busy share), kernel
-    launches per call, the largest device kernels and host ops, and for
-    each substring of ``match`` the device ms per call and per launch of
-    the kernels whose names hold it (the tracer may miss the first
-    kernels of a short window; a time per launch does not depend on
-    how many it saw; ``warmup=False`` skips the untraced first call)."""
+    launches per call, the largest device kernels (also ms a launch) and
+    host ops, and for each substring of ``match`` the device ms per call
+    and per launch of the kernels whose names hold it (the tracer may miss
+    the first kernels of a short window, and drops launches after long
+    traces; a time per launch does not depend on how many it saw;
+    ``warmup=False`` skips the untraced first call)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -275,6 +281,8 @@ def profile_ms(fn, steps: int, match: tuple = (), warmup: bool = True
         matched_per_launch_ms={
             m: sum(dev_us(e) for e in es) / 1e3
             / max(1, sum(e.count for e in es)) for m, es in hits.items()},
+        per_launch_ms={e.key[:60]: dev_us(e) / 1e3 / max(1, e.count)
+                       for e in top_dev},
         kernel_launches=sum(e.count for e in kernels) / steps,
         top_device=[(e.key[:60], dev_us(e) / 1e3 / steps, e.count // steps)
                     for e in top_dev],
@@ -3311,10 +3319,30 @@ FLASH_BWD_CASES = (
     (2, 256, 4, 4, 64, True, 0, "G=1 T=256 causal"),
     (2, 256, 14, 2, 64, False, 0, "T=256 full"),
     (2, 8, 14, 2, 64, True, 0, "T=8 causal (below the split route's rows)"))
-#: RMSNorm backward cases [rows, D]: the train shape, a ragged row count,
-#: the block route at mamba2's widths, one element an access.
-RMSNORM_BWD_CASES = ((4096, 896), (4095, 896), (2560, 2560), (1000, 5120),
-                     (5, 1001))
+#: RMSNorm backward cases (rows, D, operand offset by one element): the
+#: train shape, a ragged row count, the block route at mamba2's widths, one
+#: element an access (D 1,001; an offset view of g, then of x, so that
+#: each pointer's alignment picks the width).
+RMSNORM_BWD_CASES = ((4096, 896, None), (4095, 896, None),
+                     (2560, 2560, None), (1000, 5120, None), (5, 1001, None),
+                     (4096, 896, "g"), (64, 2560, "x"))
+#: mamba2-2.7b's widths (d_model, d_inner) at its train_4k rows, timed
+#: beside the train shape; not yet on a main path.
+RMSNORM_BWD_WIDE = ((8192, 2560), (8192, 5120))
+#: Substrings of the RMSNorm backward's device kernels' names: the row
+#: kernel of either route, then the dscale sum.
+RMSNORM_BWD_KERNELS = ("rmsnorm_bwd_warp", "rmsnorm_bwd_block",
+                       "rmsnorm_bwd_dscale")
+
+
+def _offset_view(t, on):
+    """t, or where ``on`` a copy of it one element into a fresh buffer: a
+    contiguous view whose pointer is not 16-byte aligned."""
+    import torch
+    if not on:
+        return t
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
 
 
 def _grad_held(label, got, want, tol) -> float:
@@ -3388,26 +3416,31 @@ def train_kernel_checks(dev) -> dict:
             errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], err)
             errs["lse"] = max(errs["lse"], lse_err)
             del q, k, v, dout, out, lse, plain_o, got, want, again
-        for rows, d in RMSNORM_BWD_CASES:
-            x = _rand((rows, d), gen, dtype, dev)
+        for rows, d, off in RMSNORM_BWD_CASES:
+            x = _offset_view(_rand((rows, d), gen, dtype, dev), off == "x")
             sc = torch.randn(d, generator=gen, device=dev)
-            g = _rand((rows, d), gen, dtype, dev)
+            g = _offset_view(_rand((rows, d), gen, dtype, dev), off == "g")
+            label = (f"rmsnorm_bwd [{rows}, {d}]"
+                     f"{f' ({off} offset)' if off else ''} {dtype}")
             dx, dsc = rms.rmsnorm_bwd(x, sc, g)
             torch.cuda.synchronize()
             wdx, wdsc = rms_ref.rmsnorm_bwd_ref(x, sc, g)
-            err = max(_grad_held(f"rmsnorm_bwd [{rows}, {d}] {dtype} dx", dx,
-                                 wdx, tol),
-                      _grad_held(f"rmsnorm_bwd [{rows}, {d}] {dtype} dscale",
-                                 dsc, wdsc, tol))
+            err = max(_grad_held(f"{label} dx", dx, wdx, tol),
+                      _grad_held(f"{label} dscale", dsc, wdsc, tol))
             dx2, dsc2 = rms.rmsnorm_bwd(x, sc, g)
             if not (torch.equal(dx, dx2) and torch.equal(dsc, dsc2)):
-                fail(f"rmsnorm_bwd [{rows}, {d}] {dtype} gives other bits on "
-                     f"a second call")
-            route, threads, blocks = rms.bwd_plan(rows, d)
-            log(f"[8] rmsnorm_bwd [{rows}, {d}] {dtype}: {route} route, "
-                f"{threads} threads x {blocks} blocks; dx/dscale max abs err "
-                f"{err:.3e} (tolerance {tol} x max|g| + {tol} x |g|), same "
-                f"bits twice")
+                fail(f"{label} gives other bits on a second call")
+            plan = rms.bwd_plan(dtype, rows, d, not (
+                x.data_ptr() | sc.data_ptr() | g.data_ptr() | dx.data_ptr())
+                & 15)
+            if off and plan.vec != 1:
+                fail(f"{label}: an unaligned operand took {plan.vec}-element "
+                     f"vectors")
+            log(f"[8] {label}: {plan.route} route, {plan.vec} elements an "
+                f"access, {plan.threads} threads x {plan.blocks} blocks, "
+                f"dscale over {plan.reduce_blocks} blocks; dx/dscale max abs "
+                f"err {err:.3e} (tolerance {tol} x max|g| + {tol} x |g|), "
+                f"same bits twice")
             errs["rmsnorm_bwd"] = max(errs["rmsnorm_bwd"], err)
     return errs
 
@@ -3451,6 +3484,18 @@ def counting_plain_versions(calls: dict):
             setattr(mod, name, fn)
         for t, fn in plain_tables:
             t["torch"] = fn
+
+
+def _leaf_names(tree, path="") -> list:
+    """Leaf paths of a tree in ``repro_torch.tree``'s order (dict keys
+    sorted, sequences in order)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, f"{path}/{i}")]
+    return [path[1:]]
 
 
 def _leaf_rel(got, want) -> list:
@@ -3510,6 +3555,10 @@ def train_step_check(cfg, dev, card) -> dict:
     floor = max(floor_leaf + [loss_floor, norm_floor])
     over = [i for i, (e, f) in enumerate(zip(rel_k, floor_leaf))
             if e > max(2e-2, 2 * f)]
+    # the leaves nearest their tolerance: error / max(2e-2, 2 x floor)
+    margin = [e / max(2e-2, 2 * f) for e, f in zip(rel_k, floor_leaf)]
+    names = _leaf_names(grads_t)
+    nearest = sorted(range(len(margin)), key=lambda i: -margin[i])[:4]
     log(f"[8] {cfg.name} one step (B {TRAIN_B}, T {TRAIN_T}, {m} "
         f"microbatches): loss cuda {float(loss_k):.6f} torch "
         f"{float(loss_t):.6f} f32 twin {float(loss_f):.6f}; grad norm cuda "
@@ -3520,6 +3569,10 @@ def train_step_check(cfg, dev, card) -> dict:
         f"{norm_floor:.3e}, leaves up to {max(floor_leaf):.3e}; tolerance "
         f"max(2e-2, 2 x floor) per quantity; launches {counts}; plain "
         f"versions called on the cuda step {plain_calls} ({card})")
+    log("[8] the leaves nearest their tolerance (error / max(2e-2, 2 x "
+        "floor)): " + "; ".join(
+            f"{names[i]} {rel_k[i]:.3e} / max(2e-2, 2 x {floor_leaf[i]:.3e})"
+            f" = {margin[i]:.3f}" for i in nearest))
     if not (torch.isfinite(loss_k) and all(bool(torch.isfinite(g).all())
                                            for g in gk)):
         fail("the kernels' train step gave a non-finite loss or gradient")
@@ -3547,7 +3600,10 @@ def train_step_check(cfg, dev, card) -> dict:
                 loss_rel=loss_rel, grad_norm_rel=norm_rel,
                 max_leaf_rel=max(rel_k), rounding_floor=floor,
                 floor_loss=loss_floor, floor_grad_norm=norm_floor,
-                floor_leaf_max=max(floor_leaf), launches=counts,
+                floor_leaf_max=max(floor_leaf),
+                leaves_nearest_tolerance=[(names[i], margin[i])
+                                          for i in nearest],
+                launches=counts,
                 plain_calls=plain_calls)
 
 
@@ -3591,12 +3647,12 @@ def train_times(cfg, dev, card) -> tuple:
     tokens/s, one step traced (device busy share, largest kernels), and
     each backward kernel's time beside its plain version, its library call
     (the autograd backward of SDPA and of ``F.rms_norm``) and its bound, at
-    the step's shapes."""
+    the step's shapes (the RMSNorm backward also at ``RMSNORM_BWD_WIDE``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.data import DataPipeline, SyntheticLM
     from repro_torch.kernels.flash_attention import ops as fa, ref as fa_ref
-    from repro_torch.kernels.rmsnorm import ops as rms, ref as rms_ref
+    from repro_torch.kernels.rmsnorm import ops as rms
     from repro_torch.launch import steps as ST
     from repro_torch.models import model_zoo as Z
     from repro_torch.models import params as P
@@ -3640,6 +3696,12 @@ def train_times(cfg, dev, card) -> tuple:
         f"{tokens / med * 1e3:.1f} tokens/s; peak device memory "
         f"{peak / 1e9:.2f} GB, {held / 1e9:.2f} GB of it held before the "
         f"first step ({card})")
+    rb = prof["matched_ms"]["rmsnorm_bwd"]
+    rb_launch = prof["matched_per_launch_ms"]["rmsnorm_bwd"]
+    log(f"[8] the RMSNorm backward in the traced step: {rb:.3f} ms of "
+        f"{prof['device_ms']:.3f} ms on the device in "
+        f"{round(rb / rb_launch) if rb_launch else 0} device launches, "
+        f"{rb_launch:.5f} ms a launch ({card})")
     fb = prof["matched_ms"]["flash_bwd"]
     log(f"[8] the flash backward in the traced step: {fb:.3f} ms of "
         f"{prof['device_ms']:.3f} ms on the device "
@@ -3693,24 +3755,14 @@ def train_times(cfg, dev, card) -> tuple:
         library_device_ms=lib_prof["device_ms"],
         library_device_launches=lib_prof["kernel_launches"])}
     del q, k, v, dout, out, lse, qt, kt, vt, lib_out, lib_dout
-    rows, dm = b * t, cfg.d_model
-    x = _rand((rows, dm), g, bf16, dev)
-    gy = _rand((rows, dm), g, bf16, dev)
-    sc = torch.ones(dm, device=dev)
-    xl = x.detach().requires_grad_()
-    sl = sc.to(bf16).requires_grad_()
-    y = F.rms_norm(xl, (dm,), sl, 1e-6)
-    n_bytes = 3 * rows * dm * 2 + 2 * 4 * dm
-    b_ms, b_by = bound(n_bytes, 10 * rows * dm, FP32_FLOPS)
-    times["rmsnorm_bwd"] = dict(
-        shape=[rows, dm],
-        ms=cuda_ms(lambda: rms.rmsnorm_bwd(x, sc, gy)),
-        plain_ms=cuda_ms(lambda: rms_ref.rmsnorm_bwd_ref(x, sc, gy)),
-        library_ms=cuda_ms(lambda: torch.autograd.grad(
-            y, (xl, sl), gy, retain_graph=True)),
-        bound_ms=b_ms, bound_by=b_by, bytes=n_bytes)
-    del x, gy, xl, sl, y
-    torch.cuda.empty_cache()
+    shapes = {"rmsnorm_bwd": (b * t, cfg.d_model)}
+    shapes.update({f"rmsnorm_bwd {r}x{w}": (r, w)
+                   for r, w in RMSNORM_BWD_WIDE})
+    for name, (rows, dm) in shapes.items():
+        plan = rms.bwd_plan(bf16, rows, dm, True)
+        times[name] = dict(rmsnorm_bwd_times(rows, dm, g, dev),
+                           route=plan.route,
+                           grids=[plan.blocks, plan.reduce_blocks])
     log_times("8", times, card)
     r = times["flash_attention_bwd"]
     log(f"[8] flash_attention_bwd {r['route']} route on the device, ms a "
@@ -3720,10 +3772,137 @@ def train_times(cfg, dev, card) -> tuple:
         f"{r['grids']}); SDPA's "
         f"backward {r['library_device_ms']:.4f} ms on the device in "
         f"{r['library_device_launches']:.0f} launches ({card})")
+    for name, r in times.items():
+        if name.startswith("rmsnorm_bwd"):
+            log(f"[8] {name} {r['shape']} bf16, {r['route']} route (grids "
+                f"{r['grids']}) on the device, ms a launch: "
+                + ", ".join(f"{m} {ms:.5f}"
+                            for m, ms in r["device_split"].items())
+                + f"; {r['device_ms'] / r['bound_ms']:.2f}x the bound; "
+                f"F.rms_norm's autograd backward {r['library_device_ms']:.5f}"
+                f" ms on the device in {r['library_device_launches']:.0f} "
+                f"launches (" + ", ".join(f"{k} {ms:.5f}" for k, ms
+                                          in r["library_split"].items())
+                + f") ({card})")
     step = dict(step_ms=step_ms, median_step_ms=med,
                 tokens_per_s=tokens / med * 1e3, peak_bytes=peak,
                 held_bytes=held)
     return step, prof, times
+
+
+def cold_ms(fn, reps: int = REPS) -> float:
+    """Median over ``reps`` runs of fn's device time by CUDA events, with
+    L2 flushed by a 256 MB write before each run."""
+    import torch
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def rmsnorm_bwd_times(rows, d, gen, dev) -> dict:
+    """The RMSNorm backward, its plain version and ``F.rms_norm``'s
+    autograd backward at [rows, d] bf16 (x and g drawn from ``gen``, a
+    scale of ones), with the bound: the x and g read and dx written once
+    over the HBM rate.  The kernel is held against its plain version (bf16
+    tolerance, the same bits on a second call) first.  Beside the
+    CUDA-event times (operands warm in L2 from the call before; the
+    kernel's also with L2 flushed, :func:`cold_ms`): each device launch's
+    traced time, the kernel's and the library's (their sum is the device
+    time of a call), and host µs a call of both (:func:`host_us` and the
+    profiler's CPU self time)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import ops as rms, ref as rms_ref
+
+    bf16 = torch.bfloat16
+    x = _rand((rows, d), gen, bf16, dev)
+    gy = _rand((rows, d), gen, bf16, dev)
+    sc = torch.ones(d, device=dev)
+    kern = lambda: rms.rmsnorm_bwd(x, sc, gy)                 # noqa: E731
+    label = f"rmsnorm_bwd [{rows}, {d}] bf16"
+    (dx, dsc), want = kern(), rms_ref.rmsnorm_bwd_ref(x, sc, gy)
+    err = max(_grad_held(f"{label} {n}", got, w, LM_TOL["bfloat16"])
+              for n, got, w in zip(("dx", "dscale"), (dx, dsc), want))
+    if not all(torch.equal(a, b) for a, b in zip((dx, dsc), kern())):
+        fail(f"{label} gives other bits on a second call")
+    xl = x.detach().requires_grad_()
+    sl = sc.to(bf16).requires_grad_()
+    y = F.rms_norm(xl, (d,), sl, 1e-6)
+    lib = lambda: torch.autograd.grad(y, (xl, sl), gy,       # noqa: E731
+                                      retain_graph=True)
+    n_bytes = 3 * rows * d * 2 + 2 * 4 * d
+    b_ms, b_by = bound(n_bytes, 10 * rows * d, FP32_FLOPS)
+    split = profile_ms(kern, steps=50, match=RMSNORM_BWD_KERNELS)
+    per = {m: split["matched_per_launch_ms"][m] for m in RMSNORM_BWD_KERNELS
+           if split["matched_ms"][m] > 0}
+    # the library's two kernels launch once a call each: their times a
+    # launch, which do not depend on how many launches the tracer saw
+    lib_prof = profile_ms(lib, steps=50)
+    lib_per = lib_prof["per_launch_ms"]
+    (enq_k, end_k), (enq_l, end_l) = host_us(kern), host_us(lib)
+    return dict(
+        shape=[rows, d], max_abs_err=err, ms=cuda_ms(kern),
+        cold_ms=cold_ms(kern),
+        plain_ms=cuda_ms(lambda: rms_ref.rmsnorm_bwd_ref(x, sc, gy)),
+        library_ms=cuda_ms(lib), bound_ms=b_ms, bound_by=b_by,
+        bytes=n_bytes, device_ms=sum(per.values()), device_split=per,
+        # each kernel launches once a call (the tracer can miss launches of
+        # a window; a time per launch does not depend on it)
+        device_launches=len(per), library_device_ms=sum(lib_per.values()),
+        library_device_launches=len(lib_per), library_split=lib_per,
+        host_us=enq_k, host_end_us=end_k, library_host_us=enq_l,
+        library_host_end_us=end_l, host_self_us=split["host_self_ms"] * 1e3,
+        library_host_self_us=lib_prof["host_self_ms"] * 1e3)
+
+
+def rmsnorm_bwd_build_report(built) -> dict:
+    """Registers and spills of each RMSNorm backward instance (build log),
+    and its registers, local memory, static shared memory and blocks an SM
+    at the block size of the rows it serves (D 896, 2560 and 5120 in
+    vectors; D 1001 and 5121 one element an access), and the dscale
+    kernel's → {"route vecN dtype DN" | "dscale": {...}}."""
+    import re
+    import torch
+    from repro_torch.kernels.rmsnorm import ops as rms
+
+    def key(symbol):
+        m = re.search(r"rmsnorm_bwd_(warp|block)_kernelI(f|13__nv_bfloat16)"
+                      r"Li(\d+)E", symbol)
+        if m:
+            dtype = "f32" if m.group(2) == "f" else "bf16"
+            return f"{m.group(1)} vec{m.group(3)} {dtype}"
+        return "dscale" if "rmsnorm_bwd_dscale_kernel" in symbol else None
+
+    logged = kernel_build_report(built, "rmsnorm_bwd.cu", key)
+    report = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for d in (896, 1001, 2560, 5120, 5121):
+            plan = rms.bwd_plan(dtype, 1, d, True)
+            for kern, r in rms.bwd_resources(dtype, d).items():
+                name = ("dscale" if "dscale" in kern
+                        else f"{plan.route} vec{plan.vec} {tag}")
+                r = dict(logged.get(name, {}), **r)
+                report[name if name == "dscale" else f"{name} D{d}"] = r
+                log(f"[8] rmsnorm_bwd {name} at D {d} ({r['threads']} "
+                    f"threads a block): {r['registers']} registers, spill "
+                    f"stores/loads {r.get('spill_stores', '?')}/"
+                    f"{r.get('spill_loads', '?')} bytes, {r['spill_bytes']} "
+                    f"bytes of local memory, {r['shared']} bytes of static "
+                    f"shared memory, {r['blocks_per_sm']} blocks an SM")
+    if len({k.rsplit(" ", 1)[0] for k in report if k != "dscale"}) != 8:
+        fail(f"rmsnorm_bwd build report covers {sorted(report)}, not the 8 "
+             f"row-kernel instances")
+    return report
 
 
 #: Substrings of the flash backward's device kernels' names (either route).
@@ -3731,7 +3910,7 @@ FLASH_BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_reduce",
                      "flash_bwd_dq")
 
 
-def train_path(dev, card) -> tuple:
+def train_path(dev, card, built) -> tuple:
     """qwen2-0.5b training: phase 8 → (kernel rows, launches per kernel)."""
     import torch
     from repro_torch.configs import get_config
@@ -3750,7 +3929,8 @@ def train_path(dev, card) -> tuple:
     timing, prof, times = train_times(cfg, dev, card)
     builds = {"flash_attention_bwd": {
         f"{fa._bwd_route(dt, d)} d{d}": fa.bwd_resources(dt, d)
-        for dt in (torch.float32, torch.bfloat16) for d in fa.HEAD_DIMS}}
+        for dt in (torch.float32, torch.bfloat16) for d in fa.HEAD_DIMS},
+        "rmsnorm_bwd": rmsnorm_bwd_build_report(built)}
     for key, kernels in builds["flash_attention_bwd"].items():
         log(f"[8] flash backward {key} (shared bytes, registers, spill "
             f"bytes): " + "; ".join(
@@ -3809,7 +3989,7 @@ def main() -> None:
     rms_row = lm_rows[1]
     ssm_rows, ssm_launches, rms_row["max_abs_err"] = ssm_path(
         dev, card, rms_row["max_abs_err"], built)
-    train_rows, train_launches = train_path(dev, card)
+    train_rows, train_launches = train_path(dev, card, built)
     for row in lm_rows + ssm_rows:
         row["launches"] = (lm_launches[row["name"]] + ssm_launches[row["name"]]
                            + train_launches.get(row["name"], 0))

@@ -18,11 +18,18 @@ contiguous.
 Gradients.  Where autograd needs one (grad mode on and x or the scale
 requiring a gradient) the call goes through :class:`RMSNorm`, an
 ``autograd.Function`` whose backward is :func:`rmsnorm_bwd`: the kernels
-of ``src/repro_torch/csrc/rmsnorm_bwd.cu`` on the card (a row a warp up
-to ``WARP_MAX_D``, a row a block above; dscale as per-block partial sums
-added in block order, no atomics) and the plain backward of ``ref.py``
-on the CPU.  ``backward_launch_counts()`` counts the backward calls that
-launched the kernels.
+of ``src/repro_torch/csrc/rmsnorm_bwd.cu`` on the card and the plain
+backward of ``ref.py`` on the CPU.  Its plan (:func:`bwd_plan`) takes the
+forward's route and vector width (16-byte vectors where D and the x, g,
+dx and scale pointers allow) with ``BWD_WARP_ROWS`` rows a warp-route
+block, and a grid capped by a constant a route; dscale is one row of
+partial sums a block (in a workspace kept per device and stream), summed
+by a second launch in a fixed order, no atomics.  Its host path is the
+forward's: one packed argument (``_BWD_LAUNCH``), no device switch when
+x's device is current, no copy of an operand that is already contiguous
+and of x's dtype.
+``backward_launch_counts()`` counts the backward calls that launched the
+kernels.
 """
 
 from __future__ import annotations
@@ -59,20 +66,44 @@ _LAUNCH = struct.Struct("<5q6if4x")
 
 BWD_SOURCE = _build.CSRC / "rmsnorm_bwd.cu"
 #: The backward launcher's one argument: x, scale, g, dx, the partial sums,
-#: dscale, the stream and the row count (int64); dtype, route, threads a
-#: block, blocks, D (int32); eps.
-_BWD_LAUNCH = struct.Struct("<8q5if")
-#: Rows (one warp each) a block of the backward's warp route, and the most
-#: blocks of a backward launch: the partial sums are [blocks, D].
+#: dscale, the stream and the row count (int64); dtype, vector width,
+#: route, threads a block, blocks, D (int32); eps; 4 bytes of padding.
+_BWD_LAUNCH = struct.Struct("<8q6if4x")
+#: Rows (one warp each) a block of the backward's warp route.
 BWD_WARP_ROWS = 8
-BWD_MAX_BLOCKS = 264
+#: The most blocks of a warp-route backward launch and the most warps of
+#: a block-route one (constants, not read from the card): the partial sums
+#: are [blocks, D].
+BWD_WARP_BLOCKS = 264
+BWD_BLOCK_WARPS = 1980
+#: Warps of a block of the dscale launch, which sums 32 columns.
+BWD_REDUCE_WARPS = 16
 
 _LIB = None
 _BWD_LIB = None
 _LAUNCHES: Dict[str, int] = {"rmsnorm": 0}
 _BWD_LAUNCHES: Dict[str, int] = {"rmsnorm_bwd": 0}
+# the backward's workspace of dscale partial sums by (device index,
+# stream): (tensor, address); calls on one stream run in turn
+_PARTIALS: Dict[Tuple[int, int], Tuple[torch.Tensor, int]] = {}
 _RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 _GET_DEVICE = getattr(torch._C, "_cuda_getDevice", None)
+
+
+class BwdPlan(NamedTuple):
+    """How the backward serves ``n`` rows: ``route``, ``vec`` and ``items``
+    as the forward's :class:`Plan`, ``threads`` a block, ``blocks`` (the
+    partial rows of dscale) and ``reduce_blocks`` of the dscale launch (32
+    columns each).  Warp route: warp w of block b takes rows b·8 + w,
+    b·8 + w + 8·blocks, ...; block route: block b takes rows b, b +
+    blocks, ...; vector j of a row goes to lane (thread) j % (threads of
+    the row)."""
+    route: str
+    vec: int
+    items: int
+    threads: int
+    blocks: int
+    reduce_blocks: int
 
 
 class Plan(NamedTuple):
@@ -147,30 +178,64 @@ def _lib():
 def _bwd_lib():
     global _BWD_LIB
     if _BWD_LIB is None:
+        p, i32 = ctypes.c_void_p, ctypes.c_int
         lib = _build.load(BWD_SOURCE, NVCC_FLAGS, {
             "rmsnorm_bwd_launch": [ctypes.c_char_p],
-            "rmsnorm_bwd_constants": [ctypes.c_void_p]})
-        out = (ctypes.c_int * 5)()
+            "rmsnorm_bwd_constants": [p],
+            "rmsnorm_bwd_resources": [i32, i32, i32, i32, p]})
+        out = (ctypes.c_int * 8)()
         lib.rmsnorm_bwd_constants(out)
         want = (_BWD_LAUNCH.size, ELEMS_PER_THREAD, MAX_D, BWD_WARP_ROWS,
-                MAX_D // ELEMS_PER_THREAD)
+                MAX_D // ELEMS_PER_THREAD, BWD_WARP_BLOCKS, BWD_BLOCK_WARPS,
+                BWD_REDUCE_WARPS)
         if tuple(out) != want:
             raise RuntimeError(
                 f"rmsnorm_bwd.cu's BwdLaunch size, elements a thread, widest "
-                f"D, warps a warp-route block and most threads a block "
-                f"{tuple(out)} do not match the wrapper's {want}")
+                f"D, warps a warp-route block, most threads a block, most "
+                f"blocks of a warp-route launch, most warps of a block-route "
+                f"launch and warps a dscale block {tuple(out)} do not match "
+                f"the wrapper's {want}")
         _BWD_LIB = lib
     return _BWD_LIB
 
 
-def bwd_plan(n: int, d: int) -> Tuple[str, int, int]:
-    """(route, threads a block, blocks) of the backward for ``n`` rows of
-    ``d`` elements, a pure function of the shape (so the order of every
-    sum, dscale's too, is fixed by it)."""
-    if d <= WARP_MAX_D:
-        return ("warp", 32 * BWD_WARP_ROWS,
-                min(-(-n // BWD_WARP_ROWS), BWD_MAX_BLOCKS))
-    return "block", 32 * -(-d // WARP_MAX_D), min(n, BWD_MAX_BLOCKS)
+@functools.lru_cache(maxsize=256)
+def bwd_plan(dtype: torch.dtype, n: int, d: int, aligned: bool) -> BwdPlan:
+    """The backward's plan for ``n`` rows of ``d`` elements of ``dtype``;
+    ``aligned``: x, g, dx and the scale all lie on 16-byte boundaries.  The
+    route and vector width are the forward's (:func:`_plan`); the grid is
+    min(the rows' blocks, ``BWD_WARP_BLOCKS`` or ``BWD_BLOCK_WARPS`` over
+    the warps a block), a function of (n, d) alone, so the order of every
+    sum, dscale's too, is fixed by (dtype, n, d, aligned)."""
+    p = _plan(dtype, d, aligned)
+    if p.route == "warp":
+        threads = 32 * BWD_WARP_ROWS
+        blocks = min(-(-n // BWD_WARP_ROWS), BWD_WARP_BLOCKS)
+    else:
+        threads = p.threads
+        blocks = min(n, BWD_BLOCK_WARPS // (threads // 32))
+    return BwdPlan(p.route, p.vec, p.items, threads, blocks, -(-d // 32))
+
+
+def bwd_resources(dtype: torch.dtype, d: int) -> Dict[str, Dict[str, int]]:
+    """{device kernel: {"registers": a thread, "spill_bytes": local memory
+    a thread, "shared": static shared memory a block, "blocks_per_sm":
+    blocks that one SM of the current card holds at once, "threads": a
+    block}} of the backward's two launches for aligned rows of ``d``
+    elements of ``dtype``, in launch order."""
+    plan = bwd_plan(dtype, 1, d, True)
+    out = (ctypes.c_int * 8)()
+    rc = _bwd_lib().rmsnorm_bwd_resources(_DTYPES[dtype], plan.vec,
+                                          _ROUTE_IDS[plan.route],
+                                          plan.threads, out)
+    if rc != 0:
+        raise RuntimeError(f"rmsnorm_bwd resources: CUDA error {rc}")
+    names = (f"rmsnorm_bwd_{plan.route}_kernel", "rmsnorm_bwd_dscale_kernel")
+    threads = (plan.threads, 32 * BWD_REDUCE_WARPS)
+    return {n: dict(registers=out[4 * i], spill_bytes=out[4 * i + 1],
+                    shared=out[4 * i + 2], blocks_per_sm=out[4 * i + 3],
+                    threads=threads[i])
+            for i, n in enumerate(names)}
 
 
 def resources(dtype: torch.dtype, plan: Plan) -> Tuple[int, int, int]:
@@ -210,6 +275,17 @@ def _on_cpu(x, scale) -> bool:
 def _stream(dev: torch.device) -> int:
     return (_RAW_STREAM(dev.index) if _RAW_STREAM is not None
             else torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _partials(dev: torch.device, stream: int, n: int) -> int:
+    """Address of a float32 workspace of at least ``n`` elements for the
+    backward's partial sums on (``dev``, ``stream``): the dscale launch
+    reads them before the next call on the stream writes them."""
+    held = _PARTIALS.get((dev.index, stream))
+    if held is None or held[0].numel() < n:
+        buf = torch.empty(n, dtype=torch.float32, device=dev)
+        held = _PARTIALS[(dev.index, stream)] = (buf, buf.data_ptr())
+    return held[1]
 
 
 def _launch(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -281,26 +357,36 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     if _on_cpu(x, scale) and g.device.type == "cpu":
         return ref.rmsnorm_bwd_ref(x, scale, g, eps)
     _check(x, scale)
-    if g.device != x.device or g.shape != x.shape:
-        raise ValueError(f"rmsnorm_bwd takes g of x's shape {tuple(x.shape)} "
-                         f"on {x.device}, got {tuple(g.shape)} on {g.device}")
     dev = x.device
+    if g.device != dev or g.shape != x.shape:
+        raise ValueError(f"rmsnorm_bwd takes g of x's shape {tuple(x.shape)} "
+                         f"on {dev}, got {tuple(g.shape)} on {g.device}")
     d = x.shape[-1]
     n = x.numel() // d
     lib = _bwd_lib()
-    x, scale = x.contiguous(), scale.contiguous()
-    g = g.to(x.dtype).contiguous()
-    route, threads, blocks = bwd_plan(n, d)
+    if not x.is_contiguous():
+        x = x.contiguous()
+    if not scale.is_contiguous():
+        scale = scale.contiguous()
+    if g.dtype != x.dtype:
+        g = g.to(x.dtype)
+    if not g.is_contiguous():
+        g = g.contiguous()
     dx = torch.empty_like(x)
-    partial = torch.empty((blocks, d), dtype=torch.float32, device=dev)
-    dscale = torch.empty(d, dtype=torch.float32, device=dev)
+    xp, sp, gp, dp = x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr()
+    plan = bwd_plan(x.dtype, n, d, not (xp | sp | gp | dp) & 15)
+    dscale = torch.empty_like(scale)
     stream = _stream(dev)
     packed = _BWD_LAUNCH.pack(
-        x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr(),
-        partial.data_ptr(), dscale.data_ptr(), stream, n, _DTYPES[x.dtype],
-        _ROUTE_IDS[route], threads, blocks, d, eps)
-    with torch.cuda.device(dev):
+        xp, sp, gp, dp, _partials(dev, stream, plan.blocks * d),
+        dscale.data_ptr(), stream, n, _DTYPES[x.dtype], plan.vec,
+        _ROUTE_IDS[plan.route], plan.threads, plan.blocks, d, eps)
+    if dev.index == (_GET_DEVICE() if _GET_DEVICE is not None
+                     else torch.cuda.current_device()):
         rc = lib.rmsnorm_bwd_launch(packed)
+    else:
+        with torch.cuda.device(dev):
+            rc = lib.rmsnorm_bwd_launch(packed)
     if rc != 0:
         raise RuntimeError(f"rmsnorm backward kernel launch failed: CUDA "
                            f"error {rc}")

@@ -53,6 +53,8 @@ _jit = functools.partial(
 _ref_rmsnorm = _jit(ref_rmsnorm)
 _ref_rmsnorm_ref = _jit(ref_rmsnorm_ref)
 _ref_apply_norm = _jit(ref_layers.apply_norm, static_argnums=1)
+_ref_rmsnorm_vjp = _jit(
+    lambda x, s, g: jax.vjp(ref_rmsnorm_ref, x, s)[1](g))
 
 
 @pytest.fixture
@@ -154,6 +156,85 @@ def test_plan_routes_main_path_rows_in_vectors(d, route, name):
     assert plan.vec == (8 if name == "bf16" else 4)       # 16 bytes
     assert ops._plan(dtype, d, False).vec == 1            # unaligned
     assert ops._plan(dtype, d, False).route == route
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (3, 5, 256), (2, 1001)])
+def test_plain_backward_matches_jax_vjp(shape):
+    """The plain backward (and the wrapper on CPU tensors, which takes it)
+    against ``jax.vjp`` of the reference's ``rmsnorm_ref``, float32, rtol
+    1e-5 (atol 1e-6 for the dx entries that cancel to near zero)."""
+    rng = np.random.default_rng(5)
+    x, g = (rng.standard_normal(shape, np.float32) for _ in range(2))
+    s = rng.standard_normal(shape[-1:], np.float32)
+    wdx, wds = (np.asarray(a) for a in _ref_rmsnorm_vjp(x, s, g))
+    xt, st, gt = (torch.from_numpy(a) for a in (x, s, g))
+    ops.reset_backward_launch_counts()
+    for dx, ds in (ref.rmsnorm_bwd_ref(xt, st, gt), ops.rmsnorm_bwd(xt, st, gt)):
+        assert dx.dtype == ds.dtype == torch.float32
+        np.testing.assert_allclose(dx.numpy(), wdx, rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(ds.numpy(), wds, rtol=1e-5, atol=1e-6)
+    assert ops.backward_launch_counts() == {"rmsnorm_bwd": 0}
+
+
+def _bwd_rows(plan, n):
+    """The row that each (block, warp, pass) of the backward serves, as the
+    kernels compute it: warp route row b·8 + w + k·8·blocks, block route
+    row b + k·blocks; rows past n are none."""
+    warps = ops.BWD_WARP_ROWS if plan.route == "warp" else 1
+    stride = plan.blocks * warps
+    first = np.arange(stride)                      # b·warps + w
+    rows = (first[:, None] + stride * np.arange(-(-n // stride))).ravel()
+    return rows[rows < n]
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("name", ["f32", "bf16"])
+@pytest.mark.parametrize("d", [896, 1001, 2560, 5120])
+def test_bwd_plan_covers_each_element_once(d, name, aligned):
+    """Every element of every row once over (block, warp, lane, vector);
+    the partial rows of dscale, their number and the order in which each
+    row is given to them a function of the shape alone, capped by a
+    constant; the dscale launch over each column and each partial row
+    once."""
+    dtype = DTYPES[name][1]
+    for n in (1, 5, 4095, 4096, 20000):
+        plan = ops.bwd_plan(dtype, n, d, aligned)
+        fwd = ops._plan(dtype, d, aligned)
+        assert (plan.route, plan.vec, plan.items) == (fwd.route, fwd.vec,
+                                                      fwd.items)
+        assert {ops.bwd_plan(dt, n, d, al).blocks
+                for dt in (torch.float32, torch.bfloat16)
+                for al in (True, False)} == {plan.blocks}
+        np.testing.assert_array_equal(np.sort(_bwd_rows(plan, n)),
+                                      np.arange(n))
+        if plan.route == "warp":
+            assert plan.threads == 32 * ops.BWD_WARP_ROWS
+            cap, want = ops.BWD_WARP_BLOCKS, -(-n // ops.BWD_WARP_ROWS)
+            per_row = 32
+        else:
+            assert plan.threads == fwd.threads
+            cap, want = ops.BWD_BLOCK_WARPS // (plan.threads // 32), n
+            per_row = plan.threads
+        assert plan.blocks == min(want, cap)
+        # each element of a row: thread t, item i, element e of vector
+        # t + i·per_row
+        t, i, e = np.meshgrid(np.arange(per_row), np.arange(plan.items),
+                              np.arange(plan.vec), indexing="ij")
+        vec = t + i * per_row
+        elems = (vec * plan.vec + e)[vec < d // plan.vec]
+        np.testing.assert_array_equal(np.sort(elems), np.arange(d))
+        # dscale: block c of 32 columns, warp w adding partial rows w, w +
+        # BWD_REDUCE_WARPS, ...
+        cols = np.arange(plan.reduce_blocks * 32)
+        assert plan.reduce_blocks == -(-d // 32) and (cols < d).sum() == d
+        w = ops.BWD_REDUCE_WARPS
+        parts = (np.arange(w)[:, None] + w * np.arange(-(-plan.blocks // w))
+                 ).ravel()
+        np.testing.assert_array_equal(np.sort(parts[parts < plan.blocks]),
+                                      np.arange(plan.blocks))
+    if not aligned:
+        assert plan.vec == 1
+    assert plan == ops.bwd_plan(dtype, n, d, aligned)
 
 
 # (shape, storage offset in elements): every route, width and instance

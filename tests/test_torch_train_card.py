@@ -85,15 +85,33 @@ def test_flash_backward_kernel_matches_plain(case, dtype, cuda_device):
         assert torch.equal(g, w)
 
 
+def _offset(t):
+    """A copy of t one element into a fresh buffer: contiguous, not
+    16-byte aligned."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
+
+
+# (shape, operand offset by one element): the train shape, mamba2's
+# widths, one element an access by D and by an offset view of x or of g
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(4096, 896), (37, 2560), (3, 1001)],
-                         ids=str)
+@pytest.mark.parametrize("shape, offset",
+                         [((4096, 896), None), ((37, 2560), None),
+                          ((3, 1001), None), ((8192, 5120), None),
+                          ((4096, 896), "g"), ((64, 2560), "x")], ids=str)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-def test_rmsnorm_backward_kernel_matches_plain(shape, dtype, cuda_device):
+def test_rmsnorm_backward_kernel_matches_plain(shape, offset, dtype,
+                                               cuda_device):
     x = _rand(shape, dtype, cuda_device, 0)
     sc = _rand(shape[-1:], torch.float32, cuda_device, 1)
     g = _rand(shape, dtype, cuda_device, 2)
-    xa, sa = x.clone().requires_grad_(), sc.clone().requires_grad_()
+    if offset == "x":
+        x = _offset(x)
+    elif offset == "g":
+        g = _offset(g)
+    assert bool(offset) == bool((x.data_ptr() | g.data_ptr()) & 15)
+    # x's own storage, so that an offset x reaches the backward as it is
+    xa, sa = x.detach().requires_grad_(), sc.clone().requires_grad_()
     rms.reset_backward_launch_counts()
     rms.rmsnorm(xa, sa).backward(g)
     torch.cuda.synchronize()
