@@ -68,9 +68,9 @@ Phases, each fatal on any error:
    passes, against its plain version on the card (f32 2e-4, bf16 6e-2)
    at the forward's shape, a ragged T and two groups; serve the same
    requests as in 4 from the recurrent state (RMSNorm launches only) with
-   the same replay; the prefill forward at B 2, T 4096 (64 SSD scan
-   calls) on both backends; times and traces as in 6, each SSD pass's
-   time, registers, spills, shared memory and tensor-core (HMMA)
+   the same replay, at full width and 64 layers deep; the prefill forward
+   at B 2, T 4096, 64 layers (64 SSD scan calls) on both backends; times
+   and traces as in 6, each SSD pass's time, registers, spills, shared memory and tensor-core (HMMA)
    instructions, RMSNorm at mamba2's four rows (decode and forward, the
    pre-norm and the gated norm), and the SSD's share of the forward's
    device time;
@@ -99,7 +99,28 @@ Phases, each fatal on any error:
    times also at mamba2-2.7b's widths [8192, 2560] and [8192, 5120];
    each backward instance's registers and spill bytes, the RMSNorm
    backward's static shared memory and blocks an SM); print the
-   ``train`` line, then the ``kernels`` line.
+   ``train`` line;
+9. train mamba2-2.7b at full width (64 layers, seq_len 1,024, global
+   batch 8 in the config's 4 microbatches, remat, f32 AdamW state): hold
+   the SSD backward (``ssd_bwd.cu``) and each of its five passes against
+   the plain backward on the card (``SSD_BWD_CASES``: the training shape,
+   a ragged T, two groups, the T 4,096 prefill shape; f32 and bf16 at the
+   scan's tolerance as tol x max|g| + tol x |g|, the same bits on a
+   second call); one step's loss, grad norm and every gradient leaf on
+   the kernels against the plain versions, within max(2e-2, 2 x the
+   rounding floor), launch counts exactly 2·L·m SSD scans, L·m SSD
+   backwards, (4L+1)·m RMSNorms and (2L+1)·m RMSNorm backwards with no
+   plain version called, and the peak device memory; 8 steps through
+   ``repro_torch.launch.train.main`` (the loss falls), then the failure
+   and its replay at ``SSM_REPLAY_LAYERS`` layers (two 64-layer
+   checkpoints would take ~80 GB); the step's time by events, tokens/s,
+   a trace (busy share, launches, the SSD backward's share); the SSD
+   backward's time by events and on the device by pass, beside its plain
+   version and its bound (no library call computes it), and each pass's
+   registers, spills and shared memory; print a second ``train`` line
+   (keys: card, model, seq_len, global_batch, microbatches, step,
+   trainer, timing, profile, kernels, max_abs_err, ssd_bwd_passes,
+   build, phase_s), then the ``kernels`` line.
 
 Float32 matrix products run in full float32: TF32 is switched off for
 matmuls and cuDNN.  The last line of standard output is
@@ -141,6 +162,8 @@ REPLACES = {
                            "its Pallas kernel",
     "rmsnorm_bwd": "none: the JAX package differentiates XLA RMSNorm "
                    "(src/repro/models/layers.py:34), never its Pallas kernel",
+    "ssd_bwd": "none: the JAX package differentiates XLA's ssd_chunked "
+               "(src/repro/models/mamba2.py:83), never its Pallas kernel",
     "count_terms": "src/repro/kernels/count_terms/kernel.py:99",
     "count_layers": "src/repro/kernels/count_terms/kernel.py:146",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:110",
@@ -153,6 +176,7 @@ SOURCES = {
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "rmsnorm": "src/repro_torch/csrc/rmsnorm.cu",
     "ssd": "src/repro_torch/csrc/ssd.cu",
+    "ssd_bwd": "src/repro_torch/csrc/ssd_bwd.cu",
 }
 
 #: RMSNorm cases on the card, (shape, storage offset of x in elements):
@@ -384,11 +408,11 @@ def build_all() -> dict:
     t0 = time.perf_counter()
     built = _build.build_many([(w.SOURCE, w.NVCC_FLAGS) for w in wrappers]
                               + [(w.BWD_SOURCE, w.NVCC_FLAGS)
-                                 for w in (fa_ops, rms_ops)])
+                                 for w in (fa_ops, rms_ops, ssd_ops)])
     for w in wrappers:
         w._lib()
-    fa_ops._bwd_lib()
-    rms_ops._bwd_lib()
+        if hasattr(w, "_bwd_lib"):
+            w._bwd_lib()
     log(f"[1] built {len(built)} libraries in "
         f"{time.perf_counter() - t0:.1f} s (one nvcc per source, in parallel)")
     for source, (lib, build_log) in built.items():
@@ -2348,11 +2372,10 @@ def _lm_kernel_ops():
 def reset_lm_counts() -> None:
     for mod in _lm_kernel_ops():
         mod.reset_launch_counts()
-    fa, rms, _ = _lm_kernel_ops()
+        mod.reset_backward_launch_counts()
+    fa = _lm_kernel_ops()[0]
     fa.reset_route_counts()
-    fa.reset_backward_launch_counts()
     fa.reset_backward_route_counts()
-    rms.reset_backward_launch_counts()
 
 
 def flash_routes() -> dict:
@@ -2364,7 +2387,7 @@ def lm_counts() -> dict:
     out = {}
     for mod in _lm_kernel_ops():
         out.update(mod.launch_counts())
-    for mod in _lm_kernel_ops()[:2]:
+    for mod in _lm_kernel_ops():
         out.update(mod.backward_launch_counts())
     return out
 
@@ -3448,7 +3471,8 @@ def train_kernel_checks(dev) -> dict:
 _PLAIN = (("flash_attention", "attention_ref"),
           ("flash_attention", "attention_fwd_ref"),
           ("flash_attention", "attention_bwd_ref"),
-          ("rmsnorm", "rmsnorm_ref"), ("rmsnorm", "rmsnorm_bwd_ref"))
+          ("rmsnorm", "rmsnorm_ref"), ("rmsnorm", "rmsnorm_bwd_ref"),
+          ("ssd", "ssd_scan_ref"), ("ssd", "ssd_scan_bwd_ref"))
 
 
 @contextlib.contextmanager
@@ -3456,7 +3480,7 @@ def counting_plain_versions(calls: dict):
     """Within: every call of a kernel's plain version (through its module or
     the model's backend tables) adds one to ``calls[name]``."""
     import importlib
-    from repro_torch.models import layers
+    from repro_torch.models import layers, mamba2
 
     saved = []
     for kernel, name in _PLAIN:
@@ -3473,10 +3497,13 @@ def counting_plain_versions(calls: dict):
     # the model's backend tables hold the plain forwards themselves
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.rmsnorm import ref as rms_ref
+    from repro_torch.kernels.ssd import ref as ssd_ref
     plain_tables = [(layers._ATTENTION, layers._ATTENTION["torch"]),
-                    (layers._RMSNORM, layers._RMSNORM["torch"])]
+                    (layers._RMSNORM, layers._RMSNORM["torch"]),
+                    (mamba2._SSD, mamba2._SSD["torch"])]
     layers._ATTENTION["torch"] = fa_ref.attention_ref
     layers._RMSNORM["torch"] = rms_ref.rmsnorm_ref
+    mamba2._SSD["torch"] = ssd_ref.ssd_scan_ref
     try:
         yield calls
     finally:
@@ -3505,12 +3532,14 @@ def _leaf_rel(got, want) -> list:
             for g, w in zip(got, want)]
 
 
-def train_step_check(cfg, dev, card) -> dict:
+def train_step_check(cfg, dev, card, tag, want) -> dict:
     """One train step's loss and gradients at full width on the kernels
-    (counts set to 0 just before, read just after; every plain version
-    counted) and on the plain versions, from the same parameters and
-    batch, held to max(2e-2, 2 x the rounding floor): how far the plain
-    bf16 step lies from its float32 twin."""
+    (counts set to 0 just before, read just after, and held to ``want``;
+    every plain version counted) and on the plain versions, from the same
+    parameters and batch, held to max(2e-2, 2 x the rounding floor): how
+    far the plain bf16 step lies from its float32 twin.  The kernels'
+    gradients are compared and dropped before the twin runs; the peak
+    device memory of the three steps is reported."""
     import torch
     from repro_torch.data import DataPipeline, SyntheticLM
     from repro_torch.launch import steps as ST
@@ -3519,6 +3548,7 @@ def train_step_check(cfg, dev, card) -> dict:
     from repro_torch.optim.clip import global_norm
     from repro_torch.tree import leaves, tree_map
 
+    torch.cuda.reset_peak_memory_stats()
     params = P.init_tree(Z.spec(cfg), torch.Generator(device=dev)
                          .manual_seed(0), dev)
     pipe = DataPipeline(SyntheticLM(cfg.vocab, 0), global_batch=TRAIN_B,
@@ -3540,14 +3570,25 @@ def train_step_check(cfg, dev, card) -> dict:
                      _lm_kernel_ops()[0].backward_route_counts().items()})
     loss_t, grads_t = ST.loss_and_grads(params, cfg, batch, microbatches=m,
                                         backend="torch")
+    gk, gt = leaves(grads_k), leaves(grads_t)
+    norms = [float(global_norm(g)) for g in (grads_k, grads_t)]
+    rel_k = _leaf_rel(gk, gt)
+    finite = bool(torch.isfinite(loss_k)) and all(
+        bool(torch.isfinite(g).all()) for g in gk)
+    names = _leaf_names(grads_t)
+    del grads_k, gk
+    torch.cuda.empty_cache()
     params32 = tree_map(lambda p: p.float(), params)
+    del params
     loss_f, grads_f = ST.loss_and_grads(params32, cfg, batch,
                                         microbatches=m, backend="torch")
     del params32
-    gk, gt, gf = leaves(grads_k), leaves(grads_t), leaves(grads_f)
-    norms = [float(global_norm(g)) for g in (grads_k, grads_t, grads_f)]
-    rel_k = _leaf_rel(gk, gt)
+    gf = leaves(grads_f)
+    norms.append(float(global_norm(grads_f)))
     floor_leaf = _leaf_rel(gt, gf)
+    del grads_t, grads_f, gt, gf
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
     loss_rel = abs(float(loss_k) - float(loss_t)) / abs(float(loss_t))
     loss_floor = abs(float(loss_t) - float(loss_f)) / abs(float(loss_f))
     norm_rel = abs(norms[0] - norms[1]) / norms[1]
@@ -3557,9 +3598,8 @@ def train_step_check(cfg, dev, card) -> dict:
             if e > max(2e-2, 2 * f)]
     # the leaves nearest their tolerance: error / max(2e-2, 2 x floor)
     margin = [e / max(2e-2, 2 * f) for e, f in zip(rel_k, floor_leaf)]
-    names = _leaf_names(grads_t)
     nearest = sorted(range(len(margin)), key=lambda i: -margin[i])[:4]
-    log(f"[8] {cfg.name} one step (B {TRAIN_B}, T {TRAIN_T}, {m} "
+    log(f"[{tag}] {cfg.name} one step (B {TRAIN_B}, T {TRAIN_T}, {m} "
         f"microbatches): loss cuda {float(loss_k):.6f} torch "
         f"{float(loss_t):.6f} f32 twin {float(loss_f):.6f}; grad norm cuda "
         f"{norms[0]:.6f} torch {norms[1]:.6f} twin {norms[2]:.6f}; cuda vs "
@@ -3568,13 +3608,13 @@ def train_step_check(cfg, dev, card) -> dict:
         f"(torch bf16 vs its f32 twin): loss {loss_floor:.3e}, grad norm "
         f"{norm_floor:.3e}, leaves up to {max(floor_leaf):.3e}; tolerance "
         f"max(2e-2, 2 x floor) per quantity; launches {counts}; plain "
-        f"versions called on the cuda step {plain_calls} ({card})")
-    log("[8] the leaves nearest their tolerance (error / max(2e-2, 2 x "
+        f"versions called on the cuda step {plain_calls}; peak device memory "
+        f"of the three steps {peak / 1e9:.2f} GB ({card})")
+    log(f"[{tag}] the leaves nearest their tolerance (error / max(2e-2, 2 x "
         "floor)): " + "; ".join(
             f"{names[i]} {rel_k[i]:.3e} / max(2e-2, 2 x {floor_leaf[i]:.3e})"
             f" = {margin[i]:.3f}" for i in nearest))
-    if not (torch.isfinite(loss_k) and all(bool(torch.isfinite(g).all())
-                                           for g in gk)):
+    if not finite:
         fail("the kernels' train step gave a non-finite loss or gradient")
     if over or loss_rel > max(2e-2, 2 * loss_floor) \
             or norm_rel > max(2e-2, 2 * norm_floor):
@@ -3584,16 +3624,9 @@ def train_step_check(cfg, dev, card) -> dict:
     if any(plain_calls.values()):
         fail(f"the cuda backend's train step called plain versions: "
              f"{plain_calls}")
-    L = cfg.n_layers
-    want = {"flash_attention": 2 * L * m, "flash_mma": 2 * L * m,
-            "flash_fma": 0, "flash_split": 0, "flash_attention_bwd": L * m,
-            "flash_bwd_fma": 0, "flash_bwd_mma": L * m,
-            "rmsnorm": (2 * L + 1 + 2 * L) * m, "rmsnorm_bwd": (2 * L + 1) * m,
-            "ssd": 0}
+    want = dict({k: 0 for k in counts}, **want)
     if counts != want:
         fail(f"train step launch counts {counts}, expected {want}")
-    del grads_k, grads_t, grads_f, gk, gt, gf
-    torch.cuda.empty_cache()
     return dict(loss_cuda=float(loss_k), loss_torch=float(loss_t),
                 loss_f32_twin=float(loss_f), grad_norm_cuda=norms[0],
                 grad_norm_torch=norms[1], grad_norm_f32_twin=norms[2],
@@ -3603,43 +3636,59 @@ def train_step_check(cfg, dev, card) -> dict:
                 floor_leaf_max=max(floor_leaf),
                 leaves_nearest_tolerance=[(names[i], margin[i])
                                           for i in nearest],
-                launches=counts,
-                plain_calls=plain_calls)
+                launches=counts, plain_calls=plain_calls, peak_bytes=peak)
 
 
-def trainer_runs(card) -> dict:
+def trainer_runs(tag, cfg, card, replay_layers=0, lr=None) -> dict:
     """Eight steps through ``repro_torch.launch.train.main`` at full width
     on the card, clean and with a failure at step 5 after a checkpoint at
     step 4: the loss falls, and the replayed run ends on the clean run's
-    final loss within ``RECOVERY_RTOL``."""
+    final loss within ``RECOVERY_RTOL``.  With ``replay_layers`` the pair
+    that is compared (a clean run and the failure's) runs at that depth,
+    after the clean run at the config's; ``lr`` replaces the trainer's
+    default learning rate."""
+    import shutil
+    import tempfile
     from repro_torch.launch import train
 
-    common = ["--arch", "qwen2-0.5b", "--no-smoke", "--steps",
-              str(TRAIN_STEPS), "--seq-len", str(TRAIN_T), "--global-batch",
-              str(TRAIN_B)]
+    common = ["--arch", cfg.name, "--no-smoke", "--steps", str(TRAIN_STEPS),
+              "--seq-len", str(TRAIN_T), "--global-batch", str(TRAIN_B)]
+    if lr is not None:
+        common += ["--lr", str(lr)]
     t0 = time.perf_counter()
     clean = train.main(common)
     t1 = time.perf_counter()
-    failed = train.main(common + ["--ckpt-every", str(TRAIN_CKPT_EVERY),
-                                  "--inject-failure-at", str(TRAIN_FAIL_AT)])
+    pair = common + (["--layers", str(replay_layers)] if replay_layers else [])
+    base = train.main(pair) if replay_layers else clean
     t2 = time.perf_counter()
-    rel = abs(failed[-1] - clean[-1]) / abs(clean[-1])
-    same = failed[-1] == clean[-1]
-    log(f"[8] trainer, {TRAIN_STEPS} steps: losses {clean}; wall "
-        f"{t1 - t0:.1f} s; with a checkpoint every {TRAIN_CKPT_EVERY} and a "
-        f"failure at step {TRAIN_FAIL_AT}: {len(failed)} step runs, final "
-        f"loss {failed[-1]!r} vs {clean[-1]!r} (rel {rel:.3e}, tolerance "
-        f"{RECOVERY_RTOL}; bit-identical: {same}); wall {t2 - t1:.1f} s "
+    failed = train.main(pair + ["--ckpt-every", str(TRAIN_CKPT_EVERY),
+                                "--inject-failure-at", str(TRAIN_FAIL_AT)])
+    t3 = time.perf_counter()
+    rel = abs(failed[-1] - base[-1]) / abs(base[-1])
+    same = failed[-1] == base[-1]
+    depth = replay_layers or cfg.n_layers
+    log(f"[{tag}] trainer, {TRAIN_STEPS} steps, {cfg.n_layers} layers: losses "
+        f"{clean}; wall {t1 - t0:.1f} s"
+        + (f"; at {depth} layers: losses {base}, wall {t2 - t1:.1f} s"
+           if replay_layers else "")
+        + f"; with a checkpoint every {TRAIN_CKPT_EVERY} and a failure at "
+        f"step {TRAIN_FAIL_AT} ({depth} layers): {len(failed)} step runs, "
+        f"final loss {failed[-1]!r} vs {base[-1]!r} (rel {rel:.3e}, "
+        f"tolerance {RECOVERY_RTOL}; bit-identical: {same}); wall "
+        f"{t3 - t2:.1f} s; disk free under the checkpoints' directory "
+        f"{shutil.disk_usage(tempfile.gettempdir()).free / 1e9:.1f} GB "
         f"({card})")
     if not clean[-1] < clean[0]:
         fail(f"the trainer's loss did not fall over {TRAIN_STEPS} steps: "
              f"{clean}")
     if rel > RECOVERY_RTOL:
         fail(f"the replayed run's final loss {failed[-1]} is {rel} from the "
-             f"clean run's {clean[-1]}")
-    return dict(losses=clean, losses_with_failure=failed, recovery_rel=rel,
-                recovery_bit_identical=same, wall_s_clean=t1 - t0,
-                wall_s_failure=t2 - t1)
+             f"clean run's {base[-1]}")
+    return dict(losses=clean, losses_replay_depth=base,
+                losses_with_failure=failed, replay_layers=depth,
+                recovery_rel=rel, recovery_bit_identical=same,
+                wall_s_clean=t1 - t0, wall_s_replay_depth=t2 - t1,
+                wall_s_failure=t3 - t2)
 
 
 def train_times(cfg, dev, card) -> tuple:
@@ -3924,8 +3973,12 @@ def train_path(dev, card, built) -> tuple:
         f"vocab {cfg.vocab}, {cfg.param_count()} parameters (bf16) with f32 "
         f"AdamW m, v and master; seq_len {TRAIN_T}, global batch {TRAIN_B}, "
         f"{cfg.microbatches} microbatches, remat {cfg.remat}")
-    step = train_step_check(cfg, dev, card)
-    runs = trainer_runs(card)
+    L, m = cfg.n_layers, cfg.microbatches
+    step = train_step_check(cfg, dev, card, "8", {
+        "flash_attention": 2 * L * m, "flash_mma": 2 * L * m,
+        "flash_attention_bwd": L * m, "flash_bwd_mma": L * m,
+        "rmsnorm": (4 * L + 1) * m, "rmsnorm_bwd": (2 * L + 1) * m})
+    runs = trainer_runs("8", cfg, card)
     timing, prof, times = train_times(cfg, dev, card)
     builds = {"flash_attention_bwd": {
         f"{fa._bwd_route(dt, d)} d{d}": fa.bwd_resources(dt, d)
@@ -3955,6 +4008,350 @@ def train_path(dev, card, built) -> tuple:
             shape=f"qwen2-0.5b train {r['shape']} bf16"))
     launches = {k: step["launches"][k]
                 for k in ("flash_attention", "rmsnorm")}
+    return rows, launches
+
+
+# ---------------------------------------------------------------------------
+# 9. train mamba2-2.7b: the SSD backward, a step on both backends, the
+#    trainer with a failure and its replay
+# ---------------------------------------------------------------------------
+
+#: The failure-and-replay pair of trainer runs of mamba2-2.7b runs at full
+#: width and this depth: at 64 layers one checkpoint is ~38 GB of .npy
+#: (bf16 parameters, f32 master, m and v), copied to host memory
+#: synchronously, and the run writes two (steps 4 and 8).
+SSM_REPLAY_LAYERS = 8
+#: mamba2-2.7b's trainer runs take the optimizers' own default learning
+#: rate (``optim.make_optimizer``, as the reference's), not the launcher's
+#: 3e-3, at which the 64-layer loss rises over 8 steps on the kernels and
+#: on their plain versions alike (11.34 to a peak of 18.4-18.5 at step 3;
+#: PERF.md §6).
+SSM_LR = 3e-4
+#: SSD backward cases (b, t, h, p, g, n, label): the training shape, a
+#: ragged T, two groups and the prefill shape.
+SSD_BWD_CASES = (
+    (TRAIN_B // 4, TRAIN_T, 80, 64, 1, 128, "the training shape T=1024"),
+    (2, 1000, 80, 64, 1, 128, "ragged T=1000"),
+    (2, 512, 80, 64, 2, 128, "G=2 T=512"),
+    (SSM_B, SSM_T, 80, 64, 1, 128, "the prefill shape T=4096"))
+#: Substrings of the SSD backward's device kernels' names: the forward's
+#: passes 1-3 (the recompute), then its own five.
+SSD_BWD_KERNELS = ("ssd_chunk_state_kernel", "ssd_cb_kernel",
+                   "ssd_state_pass_kernel", "ssd_bwd_chunk_out_kernel",
+                   "ssd_bwd_state_kernel", "ssd_bwd_state_side_kernel",
+                   "ssd_bwd_diag_kernel", "ssd_bwd_reduce_kernel")
+
+
+def ssd_bwd_ops_count(b, t, h, p, g, n, chunk) -> float:
+    """Operations that the SSD backward needs for these shapes, counted on
+    the least work its decomposition allows: the recompute (cum and each
+    chunk's state per head, C Bᵀ's lower triangle per group, the carry),
+    the inter-chunk term (dS_local, dC, dcum), the reverse state pass, the
+    chunk state's terms (du, dB, dcum), the intra-chunk term over the lower
+    triangle (per head dM, du, L, C Bᵀ ⊙ L, dCB, its share of dcum and the
+    sum of dCB over the group's heads; per group dC and dB from that sum),
+    dx, ddt and dA's terms, and dA's sum over the chunks.  The per-head dB
+    and dC of the inter-chunk and state terms sum over a group's heads in
+    the same multiply-adds that form them; the kernel forms the diag's dB
+    and dC per head and sums them in its reduce pass, work this count
+    leaves out."""
+    q_list = [min(chunk, t - s) for s in range(0, t, chunk)]
+    ops = 0.0
+    for i, q in enumerate(q_list):
+        tri = q * (q + 1) // 2
+        carry = 2 * p * n if i + 1 < len(q_list) else 0
+        ops += b * h * (2 * q * p * n + 2 * q + carry)        # recompute
+        ops += b * g * 2 * tri * n                             # C Bᵀ
+        ops += b * h * (4 * q * p * n + 2 * q * n + q * p)     # chunk out
+        ops += b * h * 3 * p * n                               # state
+        ops += b * h * (4 * q * p * n + 2 * q * n + q * p)     # state side
+        ops += b * h * tri * (4 * p + 7) + b * g * tri * 4 * n  # diag
+        ops += b * h * (3 * q * p + 4 * q)                     # dx, ddt, dA
+    ops += b * h * len(q_list)                                 # dA's sum
+    return ops
+
+
+def ssd_bwd_bytes(b, t, h, p, g, n, elem) -> float:
+    """x and dY read and dx written, dt read and ddt written (float32), A
+    read and dA written, b and c read and db, dc written: each once."""
+    return 3 * b * t * h * p * elem + 2 * b * t * h * 4 + 2 * h * 4 \
+        + 4 * b * t * g * n * elem
+
+
+def ssd_bwd_pass_checks(x, dt, a, bm, cm, dy, tol) -> dict:
+    """Each pass of the SSD backward against its plain pass on the same
+    inputs (the plain passes' outputs feed the next kernel pass), and the
+    same bits on a second run → {pass: max abs error}."""
+    import torch
+    from repro_torch.kernels.ssd import ops as ssd, ref as ssd_ref
+
+    q = min(256, x.shape[1])
+    cum, states = ssd_ref._chunk_state_ref(x, dt, a, bm, chunk=q)
+    cb = ssd_ref._cb_ref(bm, cm, chunk=q)
+    prev = ssd_ref._state_pass_ref(states, cum)
+    dtc = ssd_ref._dt_chunks(dt, q)
+    del states
+    errs = {}
+
+    def held(name, run, want):
+        got = run()
+        torch.cuda.synchronize()
+        errs[name] = max(_grad_held(f"ssd_bwd {name} pass", g, w, tol)
+                         for g, w in zip(got, want))
+        if not all(torch.equal(u, v) for u, v in zip(got, run())):
+            fail(f"ssd_bwd {name} pass gives other bits on a second run")
+
+    want = ssd_ref._bwd_chunk_out_ref(dy, cm, cum, prev, chunk=q)
+    held("chunk_out", lambda: ssd._bwd_chunk_out(dy, cm, cum, prev, chunk=q),
+         want)
+    dsl, dc, dcum = want
+    want = ssd_ref._bwd_state_ref(dsl, prev, cum)
+    held("state", lambda: ssd._bwd_state(dsl, prev, cum), want)
+    ds, dtot = want
+    del dsl, prev
+    want = ssd_ref._bwd_state_side_ref(x, dt, bm, cum, ds, dcum, dtot,
+                                       chunk=q)
+    held("state_side", lambda: ssd._bwd_state_side(x, dtc, bm, cum, ds, dcum,
+                                                   dtot, chunk=q), want)
+    du, db, dcum, dtot = want
+    del ds
+    want = ssd_ref._bwd_diag_ref(x, dt, a, bm, cm, dy, cb, cum, du, db, dc,
+                                 dcum, dtot, chunk=q)
+    held("diag", lambda: ssd._bwd_diag(x, dtc, a, bm, cm, dy, cb, cum, du,
+                                       db, dc, dcum, dtot, chunk=q), want)
+    _, _, da, db, dc = want
+    g, t = bm.shape[2], x.shape[1]
+    held("reduce", lambda: ssd._bwd_reduce(db, dc, da, g, t, x.dtype),
+         ssd_ref._bwd_reduce_ref(db, dc, da, g, t))
+    return errs
+
+
+def ssd_bwd_checks(dev) -> tuple:
+    """The SSD backward, and each of its passes, against its plain version
+    on the card (``SSD_BWD_CASES``, f32 and bf16, tolerance tol x max|g| +
+    tol x |g| with the scan's tol), the same bits on a second call, one
+    launch counted a call → (max abs error, {case: per-pass errors})."""
+    import torch
+    from repro_torch.kernels.ssd import ops as ssd, ref as ssd_ref
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    worst, per_pass = 0.0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = SSD_TOL[str(dtype).split(".")[1]]
+        for b, t, h, p, g, n, label in SSD_BWD_CASES:
+            x, dt, a, bm, cm = _ssd_operands((b, t, h, p, g, n), dtype, gen,
+                                             dev)
+            dy = _rand((b, t, h, p), gen, dtype, dev)
+            ssd.reset_backward_launch_counts()
+            got = ssd.ssd_scan_bwd(x, dt, a, bm, cm, dy, chunk=256)
+            torch.cuda.synchronize()
+            if ssd.backward_launch_counts() != {"ssd_bwd": 1}:
+                fail(f"ssd_bwd {label} {dtype}: launch counts "
+                     f"{ssd.backward_launch_counts()}")
+            want = ssd_ref.ssd_scan_bwd_ref(x, dt, a, bm, cm, dy, chunk=256)
+            err = max(_grad_held(f"ssd_bwd {label} {dtype} {nm}", u, w, tol)
+                      for nm, u, w in zip(("dx", "ddt", "dA", "db", "dc"),
+                                          got, want))
+            if not all(torch.equal(u, v) for u, v in zip(
+                    got, ssd.ssd_scan_bwd(x, dt, a, bm, cm, dy, chunk=256))):
+                fail(f"ssd_bwd {label} {dtype} gives other bits on a second "
+                     f"call")
+            del got, want
+            torch.cuda.empty_cache()
+            errs = ssd_bwd_pass_checks(x, dt, a, bm, cm, dy, tol)
+            per_pass[f"{label} {dtype}"] = dict(errs, all=err)
+            log(f"[9] ssd_bwd {label} {[b, t, h, p, g, n]} {dtype}: dx/ddt/dA"
+                f"/db/dc max abs err {err:.3e} (tolerance {tol} x max|g| + "
+                f"{tol} x |g|), same bits twice; passes against their plain "
+                f"passes: " + ", ".join(f"{k} {v:.3e}"
+                                         for k, v in errs.items()))
+            worst = max(worst, err)
+            del x, dt, a, bm, cm, dy
+            torch.cuda.empty_cache()
+    return worst, per_pass
+
+
+def ssd_bwd_build_report(built) -> dict:
+    """Registers and spills of each SSD backward pass (build log), and its
+    dynamic shared memory, registers, local bytes and blocks an SM →
+    {"pass dtype": {...}}."""
+    import torch
+    from repro_torch.kernels.ssd import ops as ssd
+
+    def key(symbol):
+        for name in sorted(ssd.BWD_PASSES, key=len, reverse=True):
+            if f"ssd_bwd_{name}_kernel" in symbol:
+                return f"{name} {'bf16' if 'bfloat16' in symbol else 'f32'}"
+        return None
+
+    logged = kernel_build_report(built, "ssd_bwd.cu", key)
+    report = {}
+    for name in ssd.BWD_PASSES:
+        for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            k = f"{name} {tag}"
+            r = report[k] = dict(logged.get(k, {}), **ssd.bwd_resources(
+                name, dtype))
+            log(f"[9] ssd_bwd pass {k}: {r['registers']} registers, spill "
+                f"stores/loads {r.get('spill_stores', '?')}/"
+                f"{r.get('spill_loads', '?')} bytes, {r['local_bytes']} "
+                f"bytes of local memory, {r['smem_bytes']} bytes of dynamic "
+                f"shared memory a block, {r['blocks_per_sm']} blocks an SM")
+    return report
+
+
+def ssd_bwd_times(cfg, dev, card) -> dict:
+    """The SSD backward at the training shape (one microbatch), bf16: its
+    time by events, each device launch's traced time (the recompute's three
+    and its own five), its plain version's time and its bound; no single
+    PyTorch call computes it (library "none")."""
+    import torch
+    from repro_torch.kernels.ssd import ops as ssd, ref as ssd_ref
+
+    bf16 = torch.bfloat16
+    case = (TRAIN_B // cfg.microbatches, TRAIN_T, cfg.ssm_heads,
+            cfg.ssm_head_dim, cfg.ssm_groups, cfg.ssm_state)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x, dt, a, bm, cm = _ssd_operands(case, bf16, gen, dev)
+    dy = _rand(case[:4], gen, bf16, dev)
+    kern = lambda: ssd.ssd_scan_bwd(x, dt, a, bm, cm, dy,  # noqa: E731
+                                    chunk=cfg.ssm_chunk)
+    n_bytes = ssd_bwd_bytes(*case, 2)
+    n_ops = ssd_bwd_ops_count(*case, cfg.ssm_chunk)
+    b_ms, b_by = bound(n_bytes, n_ops, BF16_FLOPS)
+    split = profile_ms(kern, steps=20, match=SSD_BWD_KERNELS)
+    per = split["matched_per_launch_ms"]
+    r = dict(shape=list(case), chunk=cfg.ssm_chunk, ms=cuda_ms(kern),
+             plain_ms=cuda_ms(lambda: ssd_ref.ssd_scan_bwd_ref(
+                 x, dt, a, bm, cm, dy, chunk=cfg.ssm_chunk), reps=5),
+             library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
+             ops=n_ops, device_split={k: per[k] for k in SSD_BWD_KERNELS},
+             device_ms=sum(per[k] for k in SSD_BWD_KERNELS),
+             fp32_cuda_core_ms=n_ops / FP32_FLOPS * 1e3)
+    log(f"[9] ssd_bwd {list(case)} bf16: a call {r['ms']:.4f} ms by events, "
+        f"{r['device_ms']:.4f} ms on the device in {len(SSD_BWD_KERNELS)} "
+        f"launches ("
+        + ", ".join(f"{k} {v:.4f}" for k, v in r["device_split"].items())
+        + f" ms a launch); plain {r['plain_ms']:.3f} ms; bound "
+        f"{b_ms:.4f} ms by {b_by} ({n_bytes / 1e6:.1f} MB, "
+        f"{n_ops / 1e9:.2f} GFLOP on the bf16 tensor cores; "
+        f"{r['fp32_cuda_core_ms']:.3f} ms at the CUDA cores' fp32 rate); "
+        f"library none ({card})")
+    return r
+
+
+def ssm_train_times(cfg, dev, card) -> tuple:
+    """mamba2-2.7b's step by CUDA events (median of steps 3-8 of 8), its
+    tokens/s and peak memory, one step traced (device busy share, kernel
+    launches, the SSD backward's share of the device time)."""
+    import torch
+    from repro_torch.data import DataPipeline, SyntheticLM
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model_zoo as Z
+    from repro_torch.models import params as P
+
+    step_fn, opt = ST.build_train_step(cfg, seq_len=TRAIN_T,
+                                       global_batch=TRAIN_B, lr=SSM_LR,
+                                       device=dev, backend="cuda")
+    params = P.init_tree(Z.spec(cfg), torch.Generator(device=dev)
+                         .manual_seed(0), dev)
+    state = opt.init(params)
+    pipe = DataPipeline(SyntheticLM(cfg.vocab, 0), global_batch=TRAIN_B,
+                        seq_len=TRAIN_T)
+    try:
+        batches = [{k: torch.from_numpy(v).to(dev)
+                    for k, v in pipe._make_batch(i).items()}
+                   for i in range(TRAIN_STEPS + 1)]
+    finally:
+        pipe.close()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for i in range(TRAIN_STEPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        params, state, metrics = step_fn(params, state, batches[i])
+        b.record()
+        torch.cuda.synchronize()
+        step_ms.append(a.elapsed_time(b))
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(step_ms[2:])
+    tokens = TRAIN_B * TRAIN_T
+    prof = profile_ms(lambda: step_fn(params, state, batches[TRAIN_STEPS]),
+                      steps=1, warmup=False,
+                      match=("ssd_bwd", "ssd_", "rmsnorm_bwd", "rmsnorm_",
+                             "gemm", "Kernel2") + SSD_BWD_KERNELS)
+    sb, sa = prof["matched_ms"]["ssd_bwd"], prof["matched_ms"]["ssd_"]
+    log(f"[9] {cfg.name} train step on the kernels: "
+        f"{[round(x, 3) for x in step_ms]} ms by events; median of steps "
+        f"3-{TRAIN_STEPS} {med:.3f} ms, {tokens / med * 1e3:.1f} tokens/s; "
+        f"peak device memory {peak / 1e9:.2f} GB, {held / 1e9:.2f} GB of it "
+        f"held before the first step ({card})")
+    log(f"[9] the SSD backward's own five passes in the traced step: "
+        f"{sb:.3f} ms of {prof['device_ms']:.3f} ms on the device "
+        f"({100 * sb / max(prof['device_ms'], 1e-9):.1f}%); every SSD kernel "
+        f"(the forward, its remat and the backward's recompute too) "
+        f"{sa:.3f} ms ({100 * sa / max(prof['device_ms'], 1e-9):.1f}%); "
+        f"device busy {100 * prof['busy_share']:.1f}%, "
+        f"{prof['kernel_launches']:.0f} kernel launches a step; by kernel: "
+        + ", ".join(f"{m} {prof['matched_ms'][m]:.3f} ms"
+                    for m in SSD_BWD_KERNELS) + f" ({card})")
+    log_profiles("9", cfg.name, {"train step": prof}, card)
+    del params, state, batches
+    torch.cuda.empty_cache()
+    return dict(step_ms=step_ms, median_step_ms=med,
+                tokens_per_s=tokens / med * 1e3, peak_bytes=peak,
+                held_bytes=held, ssd_bwd_device_ms=sb,
+                ssd_all_device_ms=sa), prof
+
+
+def ssm_train_path(dev, card, built) -> tuple:
+    """mamba2-2.7b training: phase 9 → (kernel rows, launches per kernel)."""
+    import torch
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    err, per_pass = ssd_bwd_checks(dev)
+    build = ssd_bwd_build_report(built)
+    cfg = get_config("mamba2-2.7b")
+    log(f"[9] {cfg.name} training at full width: {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.ssm_heads} SSD heads of "
+        f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk {cfg.ssm_chunk}, "
+        f"vocab {cfg.vocab}, {cfg.param_count()} parameters (bf16) with f32 "
+        f"AdamW m, v and master; seq_len {TRAIN_T}, global batch {TRAIN_B}, "
+        f"{cfg.microbatches} microbatches, remat {cfg.remat}")
+    L, m = cfg.n_layers, cfg.microbatches
+    step = train_step_check(cfg, dev, card, "9", {
+        "ssd": 2 * L * m, "ssd_bwd": L * m, "rmsnorm": (4 * L + 1) * m,
+        "rmsnorm_bwd": (2 * L + 1) * m})
+    meminfo = Path("/proc/meminfo").read_text().split("\n")[:3]
+    ckpt_gb = cfg.param_count() * (2 + 4 + 4 + 4) / 1e9
+    log(f"[9] one {cfg.n_layers}-layer checkpoint holds ~{ckpt_gb:.1f} GB "
+        f"(bf16 parameters, f32 master, m, v), the failure run writes two "
+        f"and copies each to host memory first; host {'; '.join(meminfo)}: "
+        f"the failure and replay run at {SSM_REPLAY_LAYERS} layers")
+    runs = trainer_runs("9", cfg, card, replay_layers=SSM_REPLAY_LAYERS,
+                        lr=SSM_LR)
+    timing, prof = ssm_train_times(cfg, dev, card)
+    times = {"ssd_bwd": ssd_bwd_times(cfg, dev, card)}
+    log("train " + json.dumps({
+        "card": card, "model": cfg.name, "seq_len": TRAIN_T,
+        "global_batch": TRAIN_B, "microbatches": m, "step": step,
+        "trainer": runs, "timing": timing, "profile": prof, "kernels": times,
+        "max_abs_err": {"ssd_bwd": err}, "ssd_bwd_passes": per_pass,
+        "build": {"ssd_bwd": build},
+        "phase_s": time.perf_counter() - t_phase}))
+    r = times["ssd_bwd"]
+    rows = [dict(name="ssd_bwd", route="cuda", source=SOURCES["ssd_bwd"],
+                 replaces=REPLACES["ssd_bwd"],
+                 launches=step["launches"]["ssd_bwd"], max_abs_err=err,
+                 ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                 bound_by=r["bound_by"], library_ms=None,
+                 shape=f"mamba2-2.7b train {r['shape']} bf16")]
+    launches = {k: step["launches"][k]
+                for k in ("ssd", "rmsnorm", "rmsnorm_bwd")}
     return rows, launches
 
 
@@ -3990,10 +4387,14 @@ def main() -> None:
     ssm_rows, ssm_launches, rms_row["max_abs_err"] = ssm_path(
         dev, card, rms_row["max_abs_err"], built)
     train_rows, train_launches = train_path(dev, card, built)
+    ssm_train_rows, ssm_train_launches = ssm_train_path(dev, card, built)
     for row in lm_rows + ssm_rows:
         row["launches"] = (lm_launches[row["name"]] + ssm_launches[row["name"]]
-                           + train_launches.get(row["name"], 0))
-    rows += lm_rows + ssm_rows + train_rows
+                           + train_launches.get(row["name"], 0)
+                           + ssm_train_launches.get(row["name"], 0))
+    for row in train_rows:
+        row["launches"] += ssm_train_launches.get(row["name"], 0)
+    rows += lm_rows + ssm_rows + train_rows + ssm_train_rows
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))

@@ -18,7 +18,23 @@ its plain counterpart:
 3. :func:`_state_pass_ref` — the state entering each chunk, ``S_prev``;
 4. :func:`_chunk_scan_ref` — y from the three.
 
-:func:`ssd_scan_ref` is their composition.
+:func:`ssd_scan_ref` is their composition.  Its gradient,
+:func:`ssd_scan_bwd_ref`, recomputes cum, C Bᵀ and S_prev (the state
+pass in float32) and runs the CUDA backward's five passes, each with the
+kernel's layout of what it hands on:
+
+5. :func:`_bwd_chunk_out_ref` — each chunk's own share of the gradient
+   of the state entering it, the inter-chunk term's dC and dcum;
+6. :func:`_bwd_state_ref` — the reverse state pass: dS_c of each chunk's
+   own state and the carry's share of d total;
+7. :func:`_bwd_state_side_ref` — S_c's terms: du, dB, dcum, d total;
+8. :func:`_bwd_diag_ref` — the intra-chunk terms, then dx, ddt and
+   each chunk's share of dA;
+9. :func:`_bwd_reduce_ref` — dB and dC summed over each group's heads,
+   dA over batch and chunks.
+
+Float32 and bfloat16 operands compute in float32; float64 ones in
+float64 (the tests hold the backward against autograd there).
 """
 
 from __future__ import annotations
@@ -26,12 +42,17 @@ from __future__ import annotations
 import torch
 
 
+def _wide(a: torch.Tensor) -> torch.Tensor:
+    """a in float32, or in float64 where it is float64."""
+    return a.to(torch.promote_types(a.dtype, torch.float32))
+
+
 def _chunks(a: torch.Tensor, q: int) -> torch.Tensor:
-    """[B, T, ...] → float32 [B, nc, Q, ...]; a ragged last chunk is
-    padded with zeros (dt = 0 there, an exact no-op)."""
+    """[B, T, ...] → float32 (float64 stays) [B, nc, Q, ...]; a ragged last
+    chunk is padded with zeros (dt = 0 there, an exact no-op)."""
     bsz, t = a.shape[:2]
     nc = -(-t // q)
-    a = a.float()
+    a = _wide(a)
     if nc * q != t:
         a = torch.nn.functional.pad(a, (0, 0) * (a.dim() - 2)
                                     + (0, nc * q - t))
@@ -66,7 +87,7 @@ def _chunk_state_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     xdt, dtc = _xdt(x, dt, g, q)
     nc = dtc.shape[1]
     bc = _chunks(b, q)                                    # [B, nc, Q, G, N]
-    cum = torch.cumsum(dtc * A.float(), dim=2)            # [B, nc, Q, H]
+    cum = torch.cumsum(dtc * _wide(A), dim=2)            # [B, nc, Q, H]
     total = cum[:, :, -1]                                 # [B, nc, H]
     decay_out = torch.exp(total[:, :, None] - cum)        # [B, nc, Q, H]
     xo = xdt * decay_out.reshape(bsz, nc, q, g, h // g, 1)
@@ -119,7 +140,7 @@ def _chunk_scan_ref(x: torch.Tensor, dt: torch.Tensor, c: torch.Tensor,
 
     # inter-chunk: the state entering the chunk, decayed to each step
     y_off = torch.einsum("bcqgn,bcgrpn->bcqgrp", cc,
-                         prev.float().reshape(bsz, nc, g, r, p, n))
+                         _wide(prev).reshape(bsz, nc, g, r, p, n))
     decay_in = torch.exp(cum_h.permute(0, 1, 3, 2))       # [B, nc, Q, H]
     y = y + y_off * decay_in.reshape(bsz, nc, q, g, r, 1)
     return y.reshape(bsz, nc * q, h, p)[:, :t].to(x.dtype)
@@ -136,3 +157,153 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     cb = _cb_ref(b, c, chunk=q)
     prev = _state_pass_ref(states, cum)
     return _chunk_scan_ref(x, dt, c, cb, cum, prev, chunk=q)
+
+
+# ---------------------------------------------------------------------------
+# The backward: the gradient of ssd_scan_ref, in the CUDA backward's passes
+# ---------------------------------------------------------------------------
+#
+# Per (batch, head, chunk), with u_k = dt_k x_k, L_qk = exp(cum_q - cum_k)
+# for k <= q, w_k = exp(total - cum_k) and dY the output's gradient:
+#
+#   y_q   = sum_{k<=q} CB_qk L_qk u_k + exp(cum_q) C_q . S_prev
+#   S_c   = sum_k w_k u_k B_k^T,   S_prev[c+1] = exp(total_c) S_prev[c] + S_c
+#
+# Layouts handed from pass to pass: dS [B, nc, H, P, N] (as S_c), dcum
+# [B, H, nc, Q] (as cum), dtot [B, H, nc], du [B, H, nc, Q, P], the
+# per-head dB and dC [B, H, nc, Q, N] and dA's per-chunk shares
+# [B, H, nc]; all float32 (float64 for float64 operands).
+
+
+def _per_head(a: torch.Tensor, h: int) -> torch.Tensor:
+    """Chunks [B, nc, Q, G, N] → each head's group [B, nc, Q, H, N]."""
+    return a.repeat_interleave(h // a.shape[3], dim=3)
+
+
+def _bwd_chunk_out_ref(dy: torch.Tensor, c: torch.Tensor, cum: torch.Tensor,
+                       prev: torch.Tensor, *, chunk: int):
+    """Pass 5: the inter-chunk term y_off = exp(cum) C S_prevᵀ →
+    (dS_local [B, nc, H, P, N], the chunk's own share of the gradient of
+    the state entering it, (exp(cum) ⊙ dY)ᵀ C; dC [B, H, nc, Q, N],
+    exp(cum_q) dY_q S_prev, per head; dcum [B, H, nc, Q], C_q · dC_q)."""
+    h = dy.shape[2]
+    ey = _chunks(dy, chunk) * torch.exp(cum).permute(0, 2, 3, 1)[..., None]
+    ch = _per_head(_chunks(c, chunk), h)                  # [B, nc, Q, H, N]
+    dsl = torch.einsum("bcqhp,bcqhn->bchpn", ey, ch)
+    dc = torch.einsum("bcqhp,bchpn->bhcqn", ey, _wide(prev))
+    dcum = torch.einsum("bhcqn,bcqhn->bhcq", dc, ch)
+    return dsl, dc, dcum
+
+
+def _bwd_state_ref(dsl: torch.Tensor, prev: torch.Tensor, cum: torch.Tensor):
+    """Pass 6, the reverse state pass: G = 0, then from the last chunk to
+    the first dS[c] = G, dtot[c] = exp(total_c) Σ G ⊙ S_prev[c], G =
+    dS_local[c] + exp(total_c) G → (dS [B, nc, H, P, N], the gradient of
+    each chunk's own state S_c; dtot [B, H, nc])."""
+    decay = torch.exp(cum[..., -1])                       # [B, H, nc]
+    g = torch.zeros_like(dsl[:, 0])
+    ds, dtot = [None] * dsl.shape[1], [None] * dsl.shape[1]
+    for ci in reversed(range(dsl.shape[1])):
+        ds[ci] = g
+        dtot[ci] = decay[:, :, ci] * (g * _wide(prev[:, ci])).sum((-2, -1))
+        g = dsl[:, ci] + decay[:, :, ci, None, None] * g
+    return torch.stack(ds, dim=1), torch.stack(dtot, dim=-1)
+
+
+def _bwd_state_side_ref(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+                        cum: torch.Tensor, ds: torch.Tensor,
+                        dcum: torch.Tensor, dtot: torch.Tensor, *,
+                        chunk: int):
+    """Pass 7: S_c = Σ_k w_k u_k B_kᵀ → (du [B, H, nc, Q, P] = w_k dS B_k,
+    dB [B, H, nc, Q, N] = w_k dSᵀ u_k per head, dcum - w_k dw_k, dtot +
+    Σ_k w_k dw_k), with w_k dw_k = B_k · dB_k."""
+    h = x.shape[2]
+    u = _chunks(x, chunk) * _chunks(dt, chunk)[..., None]  # [B, nc, Q, H, P]
+    bh = _per_head(_chunks(b, chunk), h)
+    w = torch.exp(cum[..., -1:] - cum)                    # [B, H, nc, Q]
+    du = w[..., None] * torch.einsum("bchpn,bcqhn->bhcqp", ds, bh)
+    db = w[..., None] * torch.einsum("bchpn,bcqhp->bhcqn", ds, u)
+    dw = torch.einsum("bhcqn,bcqhn->bhcq", db, bh)
+    return du, db, dcum - dw, dtot + dw.sum(-1)
+
+
+def _bwd_diag_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor,
+                  cb: torch.Tensor, cum: torch.Tensor, du: torch.Tensor,
+                  db: torch.Tensor, dc: torch.Tensor, dcum: torch.Tensor,
+                  dtot: torch.Tensor, *, chunk: int):
+    """Pass 8: the intra-chunk term y = (C Bᵀ ⊙ L) u, then the gradients
+    of dt·x and of cum = cumsum(dt·A) → (dx [B, T, H, P] in x's dtype,
+    ddt [B, T, H], dA's share of each chunk [B, H, nc], dB and dC per head
+    [B, H, nc, Q, N] with this pass's terms added).
+
+    dM = dY uᵀ on k <= q, dCB = dM ⊙ L; du += (C Bᵀ ⊙ L)ᵀ dY, dC += dCB
+    B, dB += dCBᵀ C; dcum_q += Σ_k dCB ⊙ C Bᵀ, dcum_k -= Σ_q of it.  With
+    R_j = Σ_{q>=j} dcum_q + dtot (total is cum's last entry, which every
+    dt of the chunk feeds): ddt = A R + u's share Σ_p du x, dx = dt du,
+    dA = Σ_j dt_j R_j."""
+    bsz, t, h, p = x.shape
+    q = chunk
+    xc = _chunks(x, q)                                    # [B, nc, Q, H, P]
+    dtc = _chunks(dt, q)                                  # [B, nc, Q, H]
+    u = xc * dtc[..., None]
+    dyc = _chunks(dy, q)
+    bh, ch = (_per_head(_chunks(a, q), h) for a in (b, c))
+    cbh = _wide(cb).repeat_interleave(h // cb.shape[2], dim=2)
+    cum_h = cum.permute(0, 2, 1, 3)                       # [B, nc, H, Q]
+    seg = cum_h[..., :, None] - cum_h[..., None, :]
+    keep = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
+    lmat = torch.exp(seg.masked_fill(~keep, float("-inf")))
+    dm = torch.einsum("bcqhp,bckhp->bchqk", dyc, u)
+    dcb = dm * lmat
+    dll = dcb * cbh
+    dcum = dcum + (dll.sum(-1) - dll.sum(-2)).permute(0, 2, 1, 3)
+    du = du + torch.einsum("bchqk,bcqhp->bhckp", cbh * lmat, dyc)
+    dc = dc + torch.einsum("bchqk,bckhn->bhcqn", dcb, bh)
+    db = db + torch.einsum("bchqk,bcqhn->bhckn", dcb, ch)
+    r = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), -1), (-1,)) \
+        + dtot[..., None]                                 # [B, H, nc, Q]
+    dtc_h = dtc.permute(0, 3, 1, 2)                       # [B, H, nc, Q]
+    ddt = _wide(A)[None, :, None, None] * r \
+        + (du * xc.permute(0, 3, 1, 2, 4)).sum(-1)
+    dx = du * dtc_h[..., None]                            # [B, H, nc, Q, P]
+    nc = dx.shape[2]
+    dx = dx.permute(0, 2, 3, 1, 4).reshape(bsz, nc * q, h, p)[:, :t]
+    ddt = ddt.permute(0, 2, 3, 1).reshape(bsz, nc * q, h)[:, :t]
+    return dx.to(x.dtype), ddt, (dtc_h * r).sum(-1), db, dc
+
+
+def _bwd_reduce_ref(db: torch.Tensor, dc: torch.Tensor, da: torch.Tensor,
+                    g: int, t: int):
+    """Pass 9: dB, dC per head [B, H, nc, Q, N] → [B, T, G, N] summed over
+    each group's heads; dA's shares [B, H, nc] → dA [H]."""
+    bsz, h, nc, q, n = db.shape
+
+    def group(a):
+        a = a.reshape(bsz, g, h // g, nc, q, n).sum(2)
+        return a.permute(0, 2, 3, 1, 4).reshape(bsz, nc * q, g, n)[:, :t]
+
+    return group(db), group(dc), da.sum((0, 2))
+
+
+def ssd_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                     b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor, *,
+                     chunk: int = 256):
+    """The gradient of :func:`ssd_scan_ref` for the output gradient ``dy``
+    (x's shape) → (dx, ddt, dA, db, dc), each in its operand's dtype.
+    Recomputes cum, C Bᵀ and S_prev (float32), then the five backward
+    passes in order."""
+    q = min(chunk, x.shape[1])
+    g, t = b.shape[2], x.shape[1]
+    cum, states = _chunk_state_ref(x, dt, A, b, chunk=q)
+    cb = _cb_ref(b, c, chunk=q)
+    prev = _state_pass_ref(states, cum)
+    dsl, dc, dcum = _bwd_chunk_out_ref(dy, c, cum, prev, chunk=q)
+    ds, dtot = _bwd_state_ref(dsl, prev, cum)
+    du, db, dcum, dtot = _bwd_state_side_ref(x, dt, b, cum, ds, dcum, dtot,
+                                             chunk=q)
+    dx, ddt, da, db, dc = _bwd_diag_ref(x, dt, A, b, c, dy, cb, cum, du, db,
+                                        dc, dcum, dtot, chunk=q)
+    db, dc, da = _bwd_reduce_ref(db, dc, da, g, t)
+    return dx, ddt.to(dt.dtype), da.to(A.dtype), db.to(b.dtype), \
+        dc.to(c.dtype)

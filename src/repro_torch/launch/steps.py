@@ -8,7 +8,9 @@ batch's microbatches forward and backward, adds their gradients in float32
 (bf16 above 100e9 parameters, as the reference does), divides by their
 number, clips to a global norm of 1.0 and applies the optimizer; it
 returns ``(params, opt_state, {"loss", "grad_norm"})``.  The update is in
-place: the returned trees are the ones passed in.  There is no mesh and
+place: the returned trees are the ones passed in.  Both families the port
+runs train: dense (qwen2-0.5b) and ssm (mamba2-2.7b, through the SSD
+scan's backward kernel on the card).  There is no mesh and
 no sharding.  The reference's ``build_serve_step`` and
 ``build_prefill_step`` wait for the dry-run slice (ROADMAP.md).
 """

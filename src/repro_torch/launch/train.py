@@ -3,19 +3,25 @@ checkpoint and fault tolerance, on the card by default.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 20
     python -m repro_torch.launch.train --no-smoke --steps 8 --seq-len 1024
+    python -m repro_torch.launch.train --arch mamba2-2.7b --no-smoke \
+        --steps 8 --seq-len 1024
 
 ``--smoke`` (the default) trains the reduced config with 2 microbatches
-(as the reference's ``--smoke``); ``--no-smoke`` the full width.  The
-weights are random, drawn from ``--seed``; each step's batch is
-``DataPipeline._make_batch(step)`` of a ``SyntheticLM``, so a replay after
-a restore sees the same data.  ``--device cpu`` runs the plain versions
-of the kernels; on the card ``--backend cuda`` (the default) runs the
-hand-written kernels, ``--backend torch`` their plain versions.
+(as the reference's ``--smoke``); ``--no-smoke`` the full width with the
+config's own microbatches (qwen2-0.5b 2, mamba2-2.7b 4).  ``--layers``
+cuts the depth and keeps the widths: an aid for tests and smoke runs
+(a full-width replay that a card's memory and disk hold), which the
+reference's launcher lacks.  The weights are random, drawn from
+``--seed``; each step's batch is ``DataPipeline._make_batch(step)`` of a
+``SyntheticLM``, so a replay after a restore sees the same data.
+``--device cpu`` runs the plain versions of the kernels; on the card
+``--backend cuda`` (the default) runs the hand-written kernels,
+``--backend torch`` their plain versions.
 ``--ckpt-dir`` keeps the checkpoints (by default a temporary directory,
 removed at the end); ``--inject-failure-at`` raises a worker failure once
 at that step, from which the supervisor restores the last checkpoint and
 replays.  The reference's ``--multi-pod`` waits for the port's parallel
-slice.  Only the dense family trains (``--arch mamba2-2.7b`` raises).
+slice.  Both families train: qwen2-0.5b (dense) and mamba2-2.7b (ssm).
 """
 
 from __future__ import annotations
@@ -51,6 +57,9 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--inject-failure-at", type=int, default=-1)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="train this many layers at full width (0: the "
+                         "config's); a test and smoke aid")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--backend", default=None, choices=("cuda", "torch"),
                     help="the kernels (default on the card) or their plain "
@@ -61,6 +70,8 @@ def main(argv=None):
     Z.check_trainable(cfg)
     if args.smoke:
         cfg = dataclasses.replace(cfg.smoke(), microbatches=2)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     dev = resolve_device(args.device)
 
     step_fn, opt = ST.build_train_step(

@@ -13,6 +13,12 @@ through the RMSNorm kernel table of :mod:`.layers`.
 Parameter names follow the reference's tree keys (``layers.3.in_proj``,
 ``layers.3.norm.scale``, ``embed.unembed``); the reference's layer
 ``scan`` becomes a Python loop and its ``shard`` calls are dropped.
+``forward`` is differentiable: with trainable parameters and grad mode
+on, autograd records it (the SSD scan and RMSNorm through their
+``autograd.Function``s on the card), each layer under
+``torch.utils.checkpoint`` where ``cfg.remat`` and some parameter
+requires grad (the reference's ``jax.checkpoint`` of its scan body with
+nothing saved).  Decode runs under ``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_backend
 from ..kernels.ssd import ops as ssd_ops
@@ -73,28 +80,30 @@ def spec(cfg) -> Dict[str, Any]:
 
 
 class Block(nn.Module):
-    """One Mamba-2 block's parameters, named as the reference's keys."""
+    """One Mamba-2 block's parameters, named as the reference's keys;
+    frozen unless ``trainable``."""
 
-    def __init__(self, tree: Dict[str, Any]):
+    def __init__(self, tree: Dict[str, Any], trainable: bool = False):
         super().__init__()
-        self.norm = param_dict(tree["norm"])
+        self.norm = param_dict(tree["norm"], trainable)
+        own = param_dict({k: tree[k] for k in _BLOCK_PARAMS}, trainable)
         for name in _BLOCK_PARAMS:
-            self.register_parameter(
-                name, nn.Parameter(tree[name], requires_grad=False))
+            self.register_parameter(name, own[name])
 
 
 class Mamba2(nn.Module):
     """The parameters of a Mamba-2 model, built from an initialised tree
-    (``params.init_tree(spec(cfg), ...)``)."""
+    (``params.init_tree(spec(cfg), ...)``); frozen unless ``trainable``."""
 
-    def __init__(self, cfg, tree: Dict[str, Any]):
+    def __init__(self, cfg, tree: Dict[str, Any], trainable: bool = False):
         super().__init__()
         if len(tree["layers"]) != cfg.n_layers:
             raise ValueError(f"tree has {len(tree['layers'])} layers, config "
                              f"{cfg.name} {cfg.n_layers}")
-        self.embed = param_dict(tree["embed"])
-        self.layers = nn.ModuleList(Block(t) for t in tree["layers"])
-        self.final_norm = param_dict(tree["final_norm"])
+        self.embed = param_dict(tree["embed"], trainable)
+        self.layers = nn.ModuleList(Block(t, trainable)
+                                    for t in tree["layers"])
+        self.final_norm = param_dict(tree["final_norm"], trainable)
 
 
 #: The family's model class, for ``model_zoo.build``.
@@ -173,16 +182,26 @@ def _block(p: Block, cfg, x, *, backend: str, state=None, conv_state=None):
     return res + out
 
 
-@torch.no_grad()
 def forward(params: Mamba2, cfg, batch: Dict[str, torch.Tensor], *,
             backend: Optional[str] = None) -> torch.Tensor:
-    """Prefill forward → logits [B, T, vocab].  ``backend=None`` → the
-    kernels on a CUDA device, their plain versions on the CPU."""
+    """Train / prefill forward → logits [B, T, vocab].  ``backend=None`` →
+    the kernels on a CUDA device, their plain versions on the CPU.
+
+    Differentiable where parameters require grad (module docstring);
+    serving and the prefill check call it under ``torch.no_grad()``."""
     tokens = batch["tokens"]
     backend = resolve_backend(backend, tokens.device)
     x = L.embed(params.embed, cfg, tokens)
+    # remat only where autograd records: frozen parameters under grad mode
+    # run the layers plainly, as under torch.no_grad()
+    remat = cfg.remat and torch.is_grad_enabled() and (
+        x.requires_grad or any(p.requires_grad for p in params.parameters()))
     for lp in params.layers:
-        x = _block(lp, cfg, x, backend=backend)
+        if remat:
+            x = checkpoint(_block, lp, cfg, x, backend=backend,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _block(lp, cfg, x, backend=backend)
     x = L.apply_norm(params.final_norm, cfg, x, backend=backend)
     return L.unembed(params.embed, cfg, x)
 

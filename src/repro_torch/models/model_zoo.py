@@ -4,8 +4,9 @@ the families the port runs (dense, ssm).
 ``spec(cfg)`` → parameter Spec tree; ``init`` → the model's parameters as
 an ``nn.Module``; ``forward`` → logits; ``cache_spec`` / ``decode_step`` →
 the serving path; ``next_token_loss`` / ``loss_fn`` → the training loss
-(dense family only: the ssm family's SSD scan has no backward yet).
-``input_specs`` belongs to the dry-run, which is not ported yet.
+(both families: their kernels, flash attention, RMSNorm and the SSD scan,
+have backward kernels).  ``input_specs`` belongs to the dry-run, which is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -37,14 +38,9 @@ def spec(cfg: ModelConfig):
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for a family the port cannot train: only the dense family's
-    kernels have backward kernels (the SSD scan's is the next slice)."""
+    """Raise for a family the port cannot train: every family it runs
+    (dense, ssm) trains; any other raises ``NotImplementedError``."""
     module_for(cfg)
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"training runs the dense family only; {cfg.name} ({cfg.family}) "
-            f"needs a backward of the SSD scan kernel, the next slice of the "
-            f"port (ROADMAP.md)")
 
 
 def build(cfg: ModelConfig, tree: Dict[str, Any], *,
@@ -112,9 +108,8 @@ def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor,
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
             backend: Optional[str] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """→ (the next-token loss of ``batch``, {"loss": it}).  The dense
-    family only; any other raises ``NotImplementedError`` on every
-    device."""
+    """→ (the next-token loss of ``batch``, {"loss": it}).  A family the
+    port does not run raises ``NotImplementedError`` on every device."""
     check_trainable(cfg)
     logits = forward(params, cfg, batch, backend=backend)
     loss = next_token_loss(logits, batch["tokens"])

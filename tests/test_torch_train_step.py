@@ -331,17 +331,25 @@ def test_gradient_of_a_step_against_a_cache_raises():
                                   q_offset=4).shape == q.shape
 
 
-def test_ssm_family_does_not_train():
+def test_ssm_family_builds_trainable():
+    """mamba2 builds trainable (its SSD scan has a backward) with every
+    parameter sharing the tree's storage; a family the port does not run
+    still raises."""
     cfg = get_config("mamba2-2.7b").smoke()
-    with pytest.raises(NotImplementedError, match="SSD scan"):
-        ST.build_train_step(cfg, seq_len=8, global_batch=2, device="cpu")
-    model = Z.init(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="SSD scan"):
-        Z.loss_fn(model, cfg, {"tokens": torch.zeros(2, 8,
-                                                     dtype=torch.long)})
-    with pytest.raises(NotImplementedError, match="SSD scan"):
-        Z.build(cfg, P.init_tree(Z.spec(cfg), torch.Generator().manual_seed(0),
-                                 "cpu"), trainable=True)
+    tree = P.init_tree(Z.spec(cfg), torch.Generator().manual_seed(0), "cpu")
+    Z.check_trainable(cfg)
+    frozen = Z.build(cfg, tree)
+    assert not any(p.requires_grad for p in frozen.parameters())
+    model = Z.build(cfg, tree, trainable=True)
+    assert all(p.requires_grad for p in model.parameters())
+    flat, _ = flatten(tree)
+    assert {p.data_ptr() for p in model.parameters()} == \
+        {t.data_ptr() for t in flat}
+    moe = dataclasses.replace(cfg, family="moe")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        Z.check_trainable(moe)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        ST.build_train_step(moe, seq_len=8, global_batch=2, device="cpu")
 
 
 def test_params_are_frozen_unless_trainable(cfgs):
