@@ -102,9 +102,10 @@ Phases, each fatal on any error:
    ``train`` line;
 9. train mamba2-2.7b at full width (64 layers, seq_len 1,024, global
    batch 8 in the config's 4 microbatches, remat, f32 AdamW state): hold
-   the SSD backward (``ssd_bwd.cu``) and each of its five passes against
+   the SSD backward (``ssd_bwd.cu``) and each pass of its route against
    the plain backward on the card (``SSD_BWD_CASES``: the training shape,
-   a ragged T, two groups, the T 4,096 prefill shape; f32 and bf16 at the
+   a ragged T, two groups, the T 4,096 prefill shape; f32 on the "fma"
+   route and bf16 on "mma", each call counted on its route, at the
    scan's tolerance as tol x max|g| + tol x |g|, the same bits on a
    second call); one step's loss, grad norm and every gradient leaf on
    the kernels against the plain versions, within max(2e-2, 2 x the
@@ -115,12 +116,15 @@ Phases, each fatal on any error:
    and its replay at ``SSM_REPLAY_LAYERS`` layers (two 64-layer
    checkpoints would take ~80 GB); the step's time by events, tokens/s,
    a trace (busy share, launches, the SSD backward's share); the SSD
-   backward's time by events and on the device by pass, beside its plain
-   version and its bound (no library call computes it), and each pass's
-   registers, spills and shared memory; print a second ``train`` line
-   (keys: card, model, seq_len, global_batch, microbatches, step,
-   trainer, timing, profile, kernels, max_abs_err, ssd_bwd_passes,
-   build, phase_s), then the ``kernels`` line.
+   backward's time by events and on the device by pass and its host µs
+   a call, beside its plain version and its bound (no library call
+   computes it), each route's float32 scratch bytes (the "mma" route
+   holds no per-head buffer), and each pass's registers, spills (a spill
+   fails), shared memory, blocks an SM and HMMA count; print a second
+   ``train`` line (keys: card, model, seq_len, global_batch,
+   microbatches, step, trainer, timing, profile, kernels, max_abs_err,
+   ssd_bwd_passes, build, ssd_bwd_workspace_bytes, phase_s), then the
+   ``kernels`` line.
 
 Float32 matrix products run in full float32: TF32 is switched off for
 matmuls and cuDNN.  The last line of standard output is
@@ -132,6 +136,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -4035,11 +4040,16 @@ SSD_BWD_CASES = (
     (2, 512, 80, 64, 2, 128, "G=2 T=512"),
     (SSM_B, SSM_T, 80, 64, 1, 128, "the prefill shape T=4096"))
 #: Substrings of the SSD backward's device kernels' names: the forward's
-#: passes 1-3 (the recompute), then its own five.
+#: passes 1-3 (the recompute), then the "fma" route's five (float32) and
+#: the "mma" route's six (bfloat16).
 SSD_BWD_KERNELS = ("ssd_chunk_state_kernel", "ssd_cb_kernel",
                    "ssd_state_pass_kernel", "ssd_bwd_chunk_out_kernel",
                    "ssd_bwd_state_kernel", "ssd_bwd_state_side_kernel",
-                   "ssd_bwd_diag_kernel", "ssd_bwd_reduce_kernel")
+                   "ssd_bwd_diag_kernel", "ssd_bwd_reduce_kernel",
+                   "ssd_bwd_chunk_out_mma_kernel",
+                   "ssd_bwd_state_slices_kernel",
+                   "ssd_bwd_state_side_mma_kernel", "ssd_bwd_diag_mma_kernel",
+                   "ssd_bwd_group_kernel", "ssd_bwd_reduce_slices_kernel")
 
 
 def ssd_bwd_ops_count(b, t, h, p, g, n, chunk) -> float:
@@ -4052,9 +4062,12 @@ def ssd_bwd_ops_count(b, t, h, p, g, n, chunk) -> float:
     sum of dCB over the group's heads; per group dC and dB from that sum),
     dx, ddt and dA's terms, and dA's sum over the chunks.  The per-head dB
     and dC of the inter-chunk and state terms sum over a group's heads in
-    the same multiply-adds that form them; the kernel forms the diag's dB
-    and dC per head and sums them in its reduce pass, work this count
-    leaves out."""
+    the same multiply-adds that form them.  The bf16 kernel ("mma") does
+    more than this count: each float32 operand of a product is two bf16
+    products, C S_prevᵀ is formed per head for dcum, and the group pass's
+    per-head products run over the whole chunk; the f32 kernel ("fma")
+    forms the diag's dB and dC per head and sums them in its reduce
+    pass."""
     q_list = [min(chunk, t - s) for s in range(0, t, chunk)]
     ops = 0.0
     for i, q in enumerate(q_list):
@@ -4079,9 +4092,10 @@ def ssd_bwd_bytes(b, t, h, p, g, n, elem) -> float:
 
 
 def ssd_bwd_pass_checks(x, dt, a, bm, cm, dy, tol) -> dict:
-    """Each pass of the SSD backward against its plain pass on the same
-    inputs (the plain passes' outputs feed the next kernel pass), and the
-    same bits on a second run → {pass: max abs error}."""
+    """Each pass of the SSD backward's route for x's dtype against its
+    plain pass on the same inputs (the plain passes' outputs feed the next
+    kernel pass), and the same bits on a second run → {pass: max abs
+    error}."""
     import torch
     from repro_torch.kernels.ssd import ops as ssd, ref as ssd_ref
 
@@ -4101,6 +4115,37 @@ def ssd_bwd_pass_checks(x, dt, a, bm, cm, dy, tol) -> dict:
         if not all(torch.equal(u, v) for u, v in zip(got, run())):
             fail(f"ssd_bwd {name} pass gives other bits on a second run")
 
+    if ssd._bwd_route(x.dtype) == "mma":
+        want = ssd_ref._bwd_chunk_out_mma_ref(dy, cm, cum, prev, chunk=q)
+        held("chunk_out_mma", lambda: ssd._bwd_chunk_out_mma(
+            dy, cm, cum, prev, chunk=q), want)
+        dsl, dcum = want
+        want = ssd_ref._bwd_state_slices_ref(dsl, prev, cum)
+        held("state_slices", lambda: ssd._bwd_state_slices(dsl, prev, cum),
+             want)
+        ds, part = want
+        del dsl
+        want = ssd_ref._bwd_state_side_mma_ref(x, dt, bm, cum, ds, dcum,
+                                               part, chunk=q)
+        held("state_side_mma", lambda: ssd._bwd_state_side_mma(
+            x, dtc, bm, cum, ds, dcum, part, chunk=q), want)
+        du, dcum, dtot = want
+        want = ssd_ref._bwd_diag_mma_ref(x, dt, a, dy, cb, cum, du, dcum,
+                                         dtot, chunk=q)
+        held("diag_mma", lambda: ssd._bwd_diag_mma(
+            x, dtc, a, bm, dy, cb, cum, du, dcum, dtot, chunk=q), want)
+        _, _, da, dcb = want
+        del want, du
+        want = ssd_ref._bwd_group_ref(x, dt, bm, cm, dy, cum, prev, ds, dcb,
+                                      chunk=q)
+        held("group", lambda: ssd._bwd_group(x, dtc, bm, cm, dy, cum, prev,
+                                             ds, dcb, chunk=q), want)
+        pdb, pdc = want
+        t = x.shape[1]
+        held("reduce_slices", lambda: ssd._bwd_reduce_slices(
+            pdb, pdc, da, t, x.dtype),
+            ssd_ref._bwd_reduce_slices_ref(pdb, pdc, da, t))
+        return errs
     want = ssd_ref._bwd_chunk_out_ref(dy, cm, cum, prev, chunk=q)
     held("chunk_out", lambda: ssd._bwd_chunk_out(dy, cm, cum, prev, chunk=q),
          want)
@@ -4128,9 +4173,10 @@ def ssd_bwd_pass_checks(x, dt, a, bm, cm, dy, tol) -> dict:
 
 def ssd_bwd_checks(dev) -> tuple:
     """The SSD backward, and each of its passes, against its plain version
-    on the card (``SSD_BWD_CASES``, f32 and bf16, tolerance tol x max|g| +
-    tol x |g| with the scan's tol), the same bits on a second call, one
-    launch counted a call → (max abs error, {case: per-pass errors})."""
+    on the card (``SSD_BWD_CASES``, f32 through the "fma" route and bf16
+    through "mma", tolerance tol x max|g| + tol x |g| with the scan's tol),
+    the same bits on a second call, one launch counted a call on the
+    dtype's route → (max abs error, {case: per-pass errors})."""
     import torch
     from repro_torch.kernels.ssd import ops as ssd, ref as ssd_ref
 
@@ -4143,11 +4189,16 @@ def ssd_bwd_checks(dev) -> tuple:
                                              dev)
             dy = _rand((b, t, h, p), gen, dtype, dev)
             ssd.reset_backward_launch_counts()
+            ssd.reset_backward_route_counts()
             got = ssd.ssd_scan_bwd(x, dt, a, bm, cm, dy, chunk=256)
             torch.cuda.synchronize()
-            if ssd.backward_launch_counts() != {"ssd_bwd": 1}:
+            route = "mma" if dtype == torch.bfloat16 else "fma"
+            if ssd.backward_launch_counts() != {"ssd_bwd": 1} or \
+                    ssd.backward_route_counts() != {
+                        r: int(r == route) for r in ssd.BWD_ROUTES}:
                 fail(f"ssd_bwd {label} {dtype}: launch counts "
-                     f"{ssd.backward_launch_counts()}")
+                     f"{ssd.backward_launch_counts()}, by route "
+                     f"{ssd.backward_route_counts()} (want one on {route})")
             want = ssd_ref.ssd_scan_bwd_ref(x, dt, a, bm, cm, dy, chunk=256)
             err = max(_grad_held(f"ssd_bwd {label} {dtype} {nm}", u, w, tol)
                       for nm, u, w in zip(("dx", "ddt", "dA", "db", "dc"),
@@ -4160,7 +4211,8 @@ def ssd_bwd_checks(dev) -> tuple:
             torch.cuda.empty_cache()
             errs = ssd_bwd_pass_checks(x, dt, a, bm, cm, dy, tol)
             per_pass[f"{label} {dtype}"] = dict(errs, all=err)
-            log(f"[9] ssd_bwd {label} {[b, t, h, p, g, n]} {dtype}: dx/ddt/dA"
+            log(f"[9] ssd_bwd {label} {[b, t, h, p, g, n]} {dtype} on "
+                f"\"{route}\": dx/ddt/dA"
                 f"/db/dc max abs err {err:.3e} (tolerance {tol} x max|g| + "
                 f"{tol} x |g|), same bits twice; passes against their plain "
                 f"passes: " + ", ".join(f"{k} {v:.3e}"
@@ -4172,38 +4224,67 @@ def ssd_bwd_checks(dev) -> tuple:
 
 
 def ssd_bwd_build_report(built) -> dict:
-    """Registers and spills of each SSD backward pass (build log), and its
-    dynamic shared memory, registers, local bytes and blocks an SM →
-    {"pass dtype": {...}}."""
-    import torch
+    """Registers and spills of each SSD backward pass (build log; the fma
+    passes are built for f32, the mma passes for bf16), its dynamic shared
+    memory, registers, local bytes and blocks an SM, and its HMMA count →
+    {"route pass": {...}}; fails where a pass spills."""
     from repro_torch.kernels.ssd import ops as ssd
 
+    names = [n for r in ssd.BWD_ROUTES for n in ssd.BWD_PASSES[r]]
+
     def key(symbol):
-        for name in sorted(ssd.BWD_PASSES, key=len, reverse=True):
+        for name in sorted(names, key=len, reverse=True):
             if f"ssd_bwd_{name}_kernel" in symbol:
-                return f"{name} {'bf16' if 'bfloat16' in symbol else 'f32'}"
+                return name
         return None
 
     logged = kernel_build_report(built, "ssd_bwd.cu", key)
     report = {}
-    for name in ssd.BWD_PASSES:
-        for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-            k = f"{name} {tag}"
-            r = report[k] = dict(logged.get(k, {}), **ssd.bwd_resources(
-                name, dtype))
+    for route in ssd.BWD_ROUTES:
+        for name in ssd.BWD_PASSES[route]:
+            k = f"{route} {name}"
+            r = report[k] = dict(logged.get(name, {}),
+                                 **ssd.bwd_resources(name))
             log(f"[9] ssd_bwd pass {k}: {r['registers']} registers, spill "
                 f"stores/loads {r.get('spill_stores', '?')}/"
                 f"{r.get('spill_loads', '?')} bytes, {r['local_bytes']} "
                 f"bytes of local memory, {r['smem_bytes']} bytes of dynamic "
-                f"shared memory a block, {r['blocks_per_sm']} blocks an SM")
+                f"shared memory a block, {r['blocks_per_sm']} blocks an SM, "
+                f"{r.get('hmma', '?')} HMMA")
+            if r.get("spill_stores") or r["local_bytes"]:
+                fail(f"ssd_bwd pass {k} spills registers: {r}")
     return report
+
+
+def ssd_bwd_workspace_report() -> dict:
+    """The float32 scratch bytes of one SSD backward call on each route at
+    each ``SSD_BWD_CASES`` shape (beyond the recompute's buffers) →
+    {"route label": bytes}; fails where the "mma" route holds a per-head
+    [B, H, nc, Q, N] buffer."""
+    from repro_torch.kernels.ssd import ops as ssd
+
+    out = {}
+    for b, t, h, p, g, n, label in SSD_BWD_CASES:
+        nc = -(-t // 256)
+        for route in ssd.BWD_ROUTES:
+            shapes = ssd.bwd_workspace(route, b, t, h, p, g, n, 256)
+            if route == "mma" and (b, h, nc, min(256, t), n) in \
+                    shapes.values():
+                fail(f"ssd_bwd mma scratch holds a per-head buffer: {shapes}")
+            out[f"{route} {label}"] = sum(4 * math.prod(v)
+                                          for v in shapes.values())
+    log("[9] ssd_bwd float32 scratch a call: " + ", ".join(
+        f"{k} {v / 1e6:.1f} MB" for k, v in out.items()))
+    return out
 
 
 def ssd_bwd_times(cfg, dev, card) -> dict:
     """The SSD backward at the training shape (one microbatch), bf16: its
     time by events, each device launch's traced time (the recompute's three
-    and its own five), its plain version's time and its bound; no single
-    PyTorch call computes it (library "none")."""
+    and its route's own), host µs a call, its plain version's time and its
+    bound; no single PyTorch call computes it (library "none").  Uses only
+    what every version of the wrapper has, so that
+    examples/ssd_bwd_torch.py can time an earlier checkout with it."""
     import torch
     from repro_torch.kernels.ssd import ops as ssd, ref as ssd_ref
 
@@ -4219,23 +4300,26 @@ def ssd_bwd_times(cfg, dev, card) -> dict:
     n_ops = ssd_bwd_ops_count(*case, cfg.ssm_chunk)
     b_ms, b_by = bound(n_bytes, n_ops, BF16_FLOPS)
     split = profile_ms(kern, steps=20, match=SSD_BWD_KERNELS)
-    per = split["matched_per_launch_ms"]
+    per = {k: v for k, v in split["matched_per_launch_ms"].items()
+           if split["matched_ms"][k] > 0}
+    enqueue_us, done_us = host_us(kern, calls=200)
     r = dict(shape=list(case), chunk=cfg.ssm_chunk, ms=cuda_ms(kern),
              plain_ms=cuda_ms(lambda: ssd_ref.ssd_scan_bwd_ref(
                  x, dt, a, bm, cm, dy, chunk=cfg.ssm_chunk), reps=5),
              library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
-             ops=n_ops, device_split={k: per[k] for k in SSD_BWD_KERNELS},
-             device_ms=sum(per[k] for k in SSD_BWD_KERNELS),
+             ops=n_ops, device_split=per, device_ms=sum(per.values()),
+             host_us=enqueue_us, host_done_us=done_us,
              fp32_cuda_core_ms=n_ops / FP32_FLOPS * 1e3)
     log(f"[9] ssd_bwd {list(case)} bf16: a call {r['ms']:.4f} ms by events, "
-        f"{r['device_ms']:.4f} ms on the device in {len(SSD_BWD_KERNELS)} "
+        f"{r['device_ms']:.4f} ms on the device in {len(per)} "
         f"launches ("
         + ", ".join(f"{k} {v:.4f}" for k, v in r["device_split"].items())
         + f" ms a launch); plain {r['plain_ms']:.3f} ms; bound "
         f"{b_ms:.4f} ms by {b_by} ({n_bytes / 1e6:.1f} MB, "
         f"{n_ops / 1e9:.2f} GFLOP on the bf16 tensor cores; "
         f"{r['fp32_cuda_core_ms']:.3f} ms at the CUDA cores' fp32 rate); "
-        f"library none ({card})")
+        f"host {enqueue_us:.1f} µs a call to enqueue, {done_us:.1f} to the "
+        f"end of the device's work; library none ({card})")
     return r
 
 
@@ -4288,7 +4372,7 @@ def ssm_train_times(cfg, dev, card) -> tuple:
         f"3-{TRAIN_STEPS} {med:.3f} ms, {tokens / med * 1e3:.1f} tokens/s; "
         f"peak device memory {peak / 1e9:.2f} GB, {held / 1e9:.2f} GB of it "
         f"held before the first step ({card})")
-    log(f"[9] the SSD backward's own five passes in the traced step: "
+    log(f"[9] the SSD backward's own passes in the traced step: "
         f"{sb:.3f} ms of {prof['device_ms']:.3f} ms on the device "
         f"({100 * sb / max(prof['device_ms'], 1e-9):.1f}%); every SSD kernel "
         f"(the forward, its remat and the backward's recompute too) "
@@ -4296,7 +4380,8 @@ def ssm_train_times(cfg, dev, card) -> tuple:
         f"device busy {100 * prof['busy_share']:.1f}%, "
         f"{prof['kernel_launches']:.0f} kernel launches a step; by kernel: "
         + ", ".join(f"{m} {prof['matched_ms'][m]:.3f} ms"
-                    for m in SSD_BWD_KERNELS) + f" ({card})")
+                    for m in SSD_BWD_KERNELS if prof['matched_ms'][m] > 0)
+        + f" ({card})")
     log_profiles("9", cfg.name, {"train step": prof}, card)
     del params, state, batches
     torch.cuda.empty_cache()
@@ -4315,6 +4400,7 @@ def ssm_train_path(dev, card, built) -> tuple:
     torch.cuda.empty_cache()
     err, per_pass = ssd_bwd_checks(dev)
     build = ssd_bwd_build_report(built)
+    workspace = ssd_bwd_workspace_report()
     cfg = get_config("mamba2-2.7b")
     log(f"[9] {cfg.name} training at full width: {cfg.n_layers} layers, "
         f"d_model {cfg.d_model}, {cfg.ssm_heads} SSD heads of "
@@ -4341,7 +4427,7 @@ def ssm_train_path(dev, card, built) -> tuple:
         "global_batch": TRAIN_B, "microbatches": m, "step": step,
         "trainer": runs, "timing": timing, "profile": prof, "kernels": times,
         "max_abs_err": {"ssd_bwd": err}, "ssd_bwd_passes": per_pass,
-        "build": {"ssd_bwd": build},
+        "build": {"ssd_bwd": build}, "ssd_bwd_workspace_bytes": workspace,
         "phase_s": time.perf_counter() - t_phase}))
     r = times["ssd_bwd"]
     rows = [dict(name="ssd_bwd", route="cuda", source=SOURCES["ssd_bwd"],

@@ -24,16 +24,21 @@ The gradient.  Where grad mode is on and an operand requires grad,
 ``ssd_scan`` goes through :class:`SSDScan`, whose backward is
 :func:`ssd_scan_bwd`: on the card it recomputes cum, C Bᵀ and S_prev
 (float32) with the forward's passes 1-3 from the saved inputs, then
-launches the five passes of ``src/repro_torch/csrc/ssd_bwd.cu`` (chunk
-out, state, state side, diag, reduce), each callable alone (``_bwd_*``)
+launches the passes of ``src/repro_torch/csrc/ssd_bwd.cu`` of the route
+that x's dtype picks (:func:`_bwd_route`): bfloat16 ``"mma"`` (the tensor
+cores; chunk out, state slices, state side, diag, group, reduce slices:
+dB and dC once a group) or float32 ``"fma"`` (the CUDA cores; chunk out,
+state, state side, diag, reduce), each pass callable alone (``_bwd_*``)
 to be held against its plain counterpart in ``ref.py``; on CPU tensors it
 runs ``ref.ssd_scan_bwd_ref``.  ``backward_launch_counts()["ssd_bwd"]``
-rises by one per backward call on the card.
+rises by one per backward call on the card, ``backward_route_counts()``
+counts the same calls by route.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, Tuple
 
 import torch
@@ -51,18 +56,28 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: The passes of one scan call, in launch order (``ssd_pass_launch``'s
 #: first argument).
 PASSES = ("chunk_state", "cb", "state_pass", "chunk_scan")
-#: The backward's passes, in launch order (``ssd_bwd_pass_launch``'s first
-#: argument).
-BWD_PASSES = ("chunk_out", "state", "state_side", "diag", "reduce")
+#: The backward's routes and their passes, in launch order; a pass's
+#: index in ``fma`` then ``mma`` is ``ssd_bwd_pass_launch``'s first
+#: argument.  Pass ``name``'s device kernel is ``ssd_bwd_<name>_kernel``.
+BWD_ROUTES = ("fma", "mma")
+BWD_PASSES = {"fma": ("chunk_out", "state", "state_side", "diag", "reduce"),
+              "mma": ("chunk_out_mma", "state_slices", "state_side_mma",
+                      "diag_mma", "group", "reduce_slices")}
+_BWD_PASS_IDS = BWD_PASSES["fma"] + BWD_PASSES["mma"]
 #: The pointers ``ssd_bwd_pass_launch`` takes, in order.
 BWD_OPERANDS = ("x", "dt", "a", "b", "c", "dy", "cum", "dtc", "prev", "cb",
                 "ds", "dcum", "dtot", "du", "dbh", "dch", "dapart", "dx",
-                "ddt", "da", "db", "dc")
+                "ddt", "da", "db", "dc", "dcbw", "ptot", "pdb", "pdc")
+#: Rows of a tile of the mma route's dCB workspace (64 x 64 fp32).
+BWD_TILE = 64
 
 _LIB = None
 _BWD_LIB = None
 _LAUNCHES: Dict[str, int] = {"ssd": 0}
 _BWD_LAUNCHES: Dict[str, int] = {"ssd_bwd": 0}
+_BWD_ROUTE_COUNTS: Dict[str, int] = dict.fromkeys(BWD_ROUTES, 0)
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+_GET_DEVICE = getattr(torch._C, "_cuda_getDevice", None)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -84,6 +99,25 @@ def reset_backward_launch_counts() -> None:
     _BWD_LAUNCHES["ssd_bwd"] = 0
 
 
+def backward_route_counts() -> Dict[str, int]:
+    """Backward calls on the card by route since the last
+    :func:`reset_backward_route_counts` (CPU tensors count on none)."""
+    return dict(_BWD_ROUTE_COUNTS)
+
+
+def reset_backward_route_counts() -> None:
+    for r in BWD_ROUTES:
+        _BWD_ROUTE_COUNTS[r] = 0
+
+
+def _bwd_route(dtype: torch.dtype) -> str:
+    """The backward's route for x of ``dtype``: ``"mma"`` for bfloat16
+    (tensor cores; the products of two bf16 inputs exact, an fp32 operand
+    fed as two bf16 terms), ``"fma"`` for float32 (CUDA cores, fp32
+    products: its 2e-4 tolerance is held with no bf16 operand)."""
+    return "mma" if dtype == torch.bfloat16 else "fma"
+
+
 def _lib():
     global _LIB
     if _LIB is None:
@@ -102,17 +136,17 @@ def _bwd_lib():
         _BWD_LIB = _build.load(BWD_SOURCE, NVCC_FLAGS, {
             "ssd_bwd_pass_launch": [i32, i32, p, p, p, p],
             "ssd_bwd_launch": [i32, p, p, p, p, p],
-            "ssd_bwd_resources": [i32, i32, p]})
+            "ssd_bwd_resources": [i32, p]})
     return _BWD_LIB
 
 
-def bwd_resources(name: str, dtype: torch.dtype) -> Dict[str, int]:
+def bwd_resources(name: str) -> Dict[str, int]:
     """Backward pass ``name``'s dynamic shared memory a block (bytes), the
     blocks one SM of the current card holds at once, and its registers and
-    local (spill) bytes a thread."""
+    local (spill) bytes a thread (an fma pass as built for float32, an mma
+    pass for bfloat16)."""
     out = (ctypes.c_int * 4)()
-    rc = _bwd_lib().ssd_bwd_resources(BWD_PASSES.index(name), _DTYPES[dtype],
-                                      out)
+    rc = _bwd_lib().ssd_bwd_resources(_BWD_PASS_IDS.index(name), out)
     if rc != 0:
         raise RuntimeError(f"ssd backward {name} pass resources: CUDA error "
                            f"{rc}")
@@ -166,6 +200,21 @@ def _strides(x=None, dt=None, b=None, c=None):
     return out
 
 
+def _stream(device: torch.device) -> int:
+    return (_RAW_STREAM(device.index) if _RAW_STREAM is not None
+            else torch.cuda.current_stream(device).cuda_stream)
+
+
+def _on(device: torch.device, launch):
+    """``launch(stream)`` with ``device`` current, entering it only where
+    it is not the current device already."""
+    if device.index == (_GET_DEVICE() if _GET_DEVICE is not None
+                        else torch.cuda.current_device()):
+        return launch(_stream(device))
+    with torch.cuda.device(device):
+        return launch(_stream(device))
+
+
 def _run(dtype, ptrs, dims, strides, device, index=None) -> None:
     """Launch pass ``PASSES[index]`` — or, with no index, the four passes
     in order, each checked before the next — on the current stream; raises
@@ -174,13 +223,13 @@ def _run(dtype, ptrs, dims, strides, device, index=None) -> None:
     args = ((ctypes.c_void_p * 11)(*ptrs), (ctypes.c_int * 7)(*dims),
             (ctypes.c_int64 * 12)(*strides))
     failed = ctypes.c_int(index or 0)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        if index is None:
-            rc = _lib().ssd_scan_launch(_DTYPES[dtype], *args, stream,
-                                        ctypes.byref(failed))
-        else:
-            rc = _lib().ssd_pass_launch(index, _DTYPES[dtype], *args, stream)
+    lib = _lib()
+    if index is None:
+        rc = _on(device, lambda st: lib.ssd_scan_launch(
+            _DTYPES[dtype], *args, st, ctypes.byref(failed)))
+    else:
+        rc = _on(device, lambda st: lib.ssd_pass_launch(
+            index, _DTYPES[dtype], *args, st))
     if rc != 0:
         raise RuntimeError(f"ssd {PASSES[failed.value]} pass launch failed: "
                            f"CUDA error {rc}")
@@ -359,18 +408,61 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """The gradients (dx, ddt, dA, db, dc), each in its operand's dtype, of
     ``ssd_scan(x, dt, A, b, c)`` for the output gradient ``dy`` (x's
     shape).  On CPU tensors the plain backward of ``ref.py``; on CUDA
-    tensors the forward's passes 1-3 (the recompute) and the five passes of
-    ``ssd_bwd.cu``, or an error — no fallback."""
+    tensors the forward's passes 1-3 (the recompute) and the passes of
+    ``ssd_bwd.cu``'s route for x's dtype (:func:`_bwd_route`), or an
+    error — no fallback."""
     _check(x, dt, A, b, c, chunk)
     if tuple(dy.shape) != tuple(x.shape):
         raise ValueError(f"ssd_scan_bwd takes dy of x's shape "
                          f"{tuple(x.shape)}, got {tuple(dy.shape)}")
     if not _on_card("ssd_scan_bwd", x, b, chunk, dt, A, c, dy):
         return ref.ssd_scan_bwd_ref(x, dt, A, b, c, dy, chunk=chunk)
+    route = _bwd_route(x.dtype)
+    out = _bwd_kernels(x, dt, A, b, c, dy, min(chunk, x.shape[1]), route)
+    _BWD_LAUNCHES["ssd_bwd"] += 1
+    _BWD_ROUTE_COUNTS[route] += 1
+    return out
+
+
+def _bwd_dims(x, b, q):
+    """``ssd_bwd_pass_launch``'s dims: (batch, t, h, p, g, n, chunk, state
+    slices, group slices)."""
     bsz, t, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
+    return (bsz, t, h, p, g, n, q, ref.state_slices(p, n),
+            ref.group_slices(h, g))
+
+
+def bwd_workspace(route: str, bsz: int, t: int, h: int, p: int, g: int,
+                  n: int, chunk: int) -> Dict[str, Tuple[int, ...]]:
+    """The float32 scratch of one backward call on ``route`` (beyond the
+    recompute's cum, dt by chunk, S_c — which dS overwrites — C Bᵀ and
+    S_prev): {name in BWD_OPERANDS: shape}.  "mma" has no per-head
+    [B, H, nc, Q, N] buffer: its dCB tiles ``dcbw`` [B, H, nc, tiles, 64,
+    64] (the lower triangle of 64 x 64 tiles), the state slices' partial
+    sums ``ptot`` [B, H, nc, S] and the group slices' partial dB and dC
+    [S', B, nc, G, Q, N]."""
     q = min(chunk, t)
     nc = -(-t // q)
+    shapes = dict(dcum=(bsz, h, nc, q), dtot=(bsz, h, nc),
+                  du=(bsz, h, nc, q, p), dapart=(bsz, h, nc))
+    if route == "fma":
+        shapes.update(dbh=(bsz, h, nc, q, n), dch=(bsz, h, nc, q, n))
+    else:
+        ntq = -(-q // BWD_TILE)
+        gs = ref.group_slices(h, g)
+        shapes.update(
+            dcbw=(bsz, h, nc, ntq * (ntq + 1) // 2, BWD_TILE, BWD_TILE),
+            ptot=(bsz, h, nc, ref.state_slices(p, n)),
+            pdb=(gs, bsz, nc, g, q, n), pdc=(gs, bsz, nc, g, q, n))
+    return shapes
+
+
+def _bwd_kernels(x, dt, A, b, c, dy, q, route):
+    """The backward of checked operands on the card, q the chunk (at most
+    T): the recompute, then ``route``'s passes in one host call."""
+    bsz, t, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
     x, b, c = _last_contiguous(x, b, c)
     dtf, A = dt.float(), A.contiguous()
     dy = dy.to(x.dtype).contiguous()
@@ -379,62 +471,56 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     prev = _state_pass(states, cum)
     # float32 scratch in one buffer, each part 256-byte aligned; dS takes
     # the place of S_c, which the state pass has read
-    sizes = (bsz * h * nc * q, bsz * h * nc, bsz * h * nc * q * p,
-             bsz * h * nc * q * n, bsz * h * nc * q * n, bsz * h * nc)
+    shapes = bwd_workspace(route, bsz, t, h, p, g, n, q)
     offs = [0]
-    for size in sizes:
-        offs.append(offs[-1] + -(-size // 64) * 64)
+    for shape in shapes.values():
+        offs.append(offs[-1] + -(-math.prod(shape) // 64) * 64)
     ws = torch.empty(offs[-1], dtype=torch.float32, device=x.device)
-    dcum, dtot, du, dbh, dch, dapart = (ws.data_ptr() + 4 * o
-                                        for o in offs[:-1])
+    ptrs = {k: ws.data_ptr() + 4 * o for k, o in zip(shapes, offs)}
     dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     ddt = torch.empty((bsz, t, h), dtype=torch.float32, device=x.device)
     da = torch.empty(h, dtype=torch.float32, device=x.device)
     db = torch.empty((bsz, t, g, n), dtype=x.dtype, device=x.device)
     dc = torch.empty_like(db)
-    ptrs = dict(x=x.data_ptr(), a=A.data_ptr(), b=b.data_ptr(),
+    ptrs.update(x=x.data_ptr(), a=A.data_ptr(), b=b.data_ptr(),
                 c=c.data_ptr(), dy=dy.data_ptr(), cum=cum.data_ptr(),
                 dtc=dtc.data_ptr(), prev=prev.data_ptr(), cb=cb.data_ptr(),
-                ds=states.data_ptr(), dcum=dcum, dtot=dtot, du=du, dbh=dbh,
-                dch=dch, dapart=dapart, dx=dx.data_ptr(),
-                ddt=ddt.data_ptr(), da=da.data_ptr(), db=db.data_ptr(),
-                dc=dc.data_ptr())
-    _bwd_run(x.dtype, ptrs, (bsz, t, h, p, g, n, q), _strides(x, None, b, c),
+                ds=states.data_ptr(), dx=dx.data_ptr(), ddt=ddt.data_ptr(),
+                da=da.data_ptr(), db=db.data_ptr(), dc=dc.data_ptr())
+    _bwd_run(x.dtype, ptrs, _bwd_dims(x, b, q), _strides(x, None, b, c),
              x.device)
-    _BWD_LAUNCHES["ssd_bwd"] += 1
     return (dx, ddt.to(dt.dtype), da.to(A.dtype), db.to(b.dtype),
             dc.to(c.dtype))
 
 
 def _bwd_run(dtype, ptrs: Dict[str, int], dims, strides, device,
              index=None) -> None:
-    """Launch backward pass ``BWD_PASSES[index]`` — or, with no index, the
-    five in order, each checked before the next — on the current stream;
-    raises on a non-zero CUDA error.  ``ptrs``: {name in BWD_OPERANDS:
-    device address}, 0 where absent; ``dims``: (batch, t, h, p, g, n,
-    chunk)."""
+    """Launch backward pass ``index`` (into ``fma`` then ``mma`` of
+    BWD_PASSES) — or, with no index, the passes of dtype's route in order,
+    each checked before the next — on the current stream; raises on a
+    non-zero CUDA error.  ``ptrs``: {name in BWD_OPERANDS: device
+    address}, 0 where absent; ``dims``: :func:`_bwd_dims`."""
     args = ((ctypes.c_void_p * len(BWD_OPERANDS))(
                 *(ptrs.get(k, 0) for k in BWD_OPERANDS)),
-            (ctypes.c_int * 7)(*dims), (ctypes.c_int64 * 12)(*strides))
+            (ctypes.c_int * 9)(*dims), (ctypes.c_int64 * 12)(*strides))
     failed = ctypes.c_int(index or 0)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        if index is None:
-            rc = _bwd_lib().ssd_bwd_launch(_DTYPES[dtype], *args, stream,
-                                           ctypes.byref(failed))
-        else:
-            rc = _bwd_lib().ssd_bwd_pass_launch(index, _DTYPES[dtype], *args,
-                                                stream)
+    lib = _bwd_lib()
+    if index is None:
+        rc = _on(device, lambda st: lib.ssd_bwd_launch(
+            _DTYPES[dtype], *args, st, ctypes.byref(failed)))
+    else:
+        rc = _on(device, lambda st: lib.ssd_bwd_pass_launch(
+            index, _DTYPES[dtype], *args, st))
     if rc != 0:
-        raise RuntimeError(f"ssd backward {BWD_PASSES[failed.value]} pass "
-                           f"launch failed: CUDA error {rc}")
+        raise RuntimeError(f"ssd backward {_BWD_PASS_IDS[failed.value]} "
+                           f"pass launch failed: CUDA error {rc}")
 
 
 def _bwd_pass(name: str, dtype: torch.dtype, dims, inputs: Dict, outputs):
     """Check the operands of backward pass ``name`` and launch it alone:
     ``inputs`` are read (each but x, b and c made contiguous), ``outputs``
-    ({name: contiguous tensor}) written or updated in place.  → the
-    outputs, in order."""
+    ({name: contiguous tensor}) written or updated in place.  ``dims``:
+    :func:`_bwd_dims`.  → the outputs, in order."""
     inputs = {k: v if k in ("x", "b", "c") else v.contiguous()
               for k, v in inputs.items()}
     tensors = dict(inputs, **outputs)
@@ -453,7 +539,7 @@ def _bwd_pass(name: str, dtype: torch.dtype, dims, inputs: Dict, outputs):
                              f"contiguous {k} in its kernel dtype")
     _bwd_run(dtype, {k: v.data_ptr() for k, v in tensors.items()}, dims,
              _strides(tensors.get("x"), None, tensors.get("b"),
-                      tensors.get("c")), dev, BWD_PASSES.index(name))
+                      tensors.get("c")), dev, _BWD_PASS_IDS.index(name))
     return tuple(outputs.values())
 
 
@@ -466,6 +552,12 @@ def _copy(v):
     return torch.empty(v.shape, dtype=v.dtype, device=v.device).copy_(v)
 
 
+def _fma_dims(bsz, t, h, p, g, n, chunk):
+    return (bsz, t, h, p, g, n, chunk, 0, 0)
+
+
+# ---- route "fma" (float32), each pass alone ---------------------------------
+
 def _bwd_chunk_out(dy, c, cum, prev, *, chunk):
     """Pass 5 alone → (dS_local [B, nc, H, P, N], dC per head [B, H, nc,
     Q, N], dcum [B, H, nc, Q]), as ``ref._bwd_chunk_out_ref``; ``prev``
@@ -473,7 +565,8 @@ def _bwd_chunk_out(dy, c, cum, prev, *, chunk):
     bsz, t, h, p = dy.shape
     g, n = c.shape[2], c.shape[3]
     nc = -(-t // chunk)
-    return _bwd_pass("chunk_out", dy.dtype, (bsz, t, h, p, g, n, chunk),
+    return _bwd_pass("chunk_out", dy.dtype, _fma_dims(bsz, t, h, p, g, n,
+                                                      chunk),
                      dict(dy=dy, c=c, cum=cum, prev=prev),
                      dict(ds=_f32(prev.shape, dy.device),
                           dch=_f32((bsz, h, nc, chunk, n), dy.device),
@@ -486,7 +579,7 @@ def _bwd_state(dsl, prev, cum):
     bsz, nc, h, p, n = dsl.shape
     chunk = cum.shape[-1]
     return _bwd_pass("state", torch.float32,
-                     (bsz, nc * chunk, h, p, 1, n, chunk),
+                     _fma_dims(bsz, nc * chunk, h, p, 1, n, chunk),
                      dict(prev=prev, cum=cum),
                      dict(ds=_copy(dsl), dtot=_f32((bsz, h, nc), dsl.device)))
 
@@ -498,7 +591,8 @@ def _bwd_state_side(x, dtc, b, cum, ds, dcum, dtot, *, chunk):
     bsz, t, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     nc = -(-t // chunk)
-    return _bwd_pass("state_side", x.dtype, (bsz, t, h, p, g, n, chunk),
+    return _bwd_pass("state_side", x.dtype, _fma_dims(bsz, t, h, p, g, n,
+                                                      chunk),
                      dict(x=x, b=b, cum=cum, dtc=dtc, ds=ds),
                      dict(du=_f32((bsz, h, nc, chunk, p), x.device),
                           dbh=_f32((bsz, h, nc, chunk, n), x.device),
@@ -513,7 +607,7 @@ def _bwd_diag(x, dtc, A, b, c, dy, cb, cum, du, db, dc, dcum, dtot, *,
     g, n = b.shape[2], b.shape[3]
     nc = -(-t // chunk)
     dx, ddt, dapart, _, dbh, dch = _bwd_pass(
-        "diag", x.dtype, (bsz, t, h, p, g, n, chunk),
+        "diag", x.dtype, _fma_dims(bsz, t, h, p, g, n, chunk),
         dict(x=x, a=A, b=b, c=c, dy=dy, cb=cb, cum=cum, dtc=dtc, dcum=dcum,
              dtot=dtot),
         dict(dx=torch.empty(x.shape, dtype=x.dtype, device=x.device),
@@ -528,7 +622,119 @@ def _bwd_reduce(dbh, dch, dapart, g, t, dtype):
     ``ref._bwd_reduce_ref``."""
     bsz, h, nc, chunk, n = dbh.shape
     db = torch.empty((bsz, t, g, n), dtype=dtype, device=dbh.device)
-    return _bwd_pass("reduce", dtype, (bsz, t, h, 1, g, n, chunk),
+    return _bwd_pass("reduce", dtype, _fma_dims(bsz, t, h, 1, g, n, chunk),
                      dict(dbh=dbh, dch=dch, dapart=dapart),
                      dict(db=db, dc=torch.empty_like(db),
                           da=_f32((h,), dbh.device)))
+
+
+# ---- route "mma" (bfloat16), each pass alone --------------------------------
+
+def _tiles(dcb):
+    """dCB [B, H, nc, Q, Q] → the workspace's lower-triangle 64 x 64 tiles
+    [B, H, nc, tiles, 64, 64] (zero past Q)."""
+    bsz, h, nc, q, _ = dcb.shape
+    ntq = -(-q // BWD_TILE)
+    full = torch.zeros((bsz, h, nc, ntq * BWD_TILE, ntq * BWD_TILE),
+                       dtype=torch.float32, device=dcb.device)
+    full[..., :q, :q] = dcb
+    full = full.reshape(bsz, h, nc, ntq, BWD_TILE, ntq, BWD_TILE)
+    return torch.stack([full[:, :, :, qt, :, kt] for qt in range(ntq)
+                        for kt in range(qt + 1)], dim=3).contiguous()
+
+
+def _untiles(tiles, q):
+    """The inverse of :func:`_tiles`: tiles → dCB [B, H, nc, Q, Q], zero
+    above the diagonal tiles."""
+    bsz, h, nc = tiles.shape[:3]
+    ntq = -(-q // BWD_TILE)
+    full = torch.zeros((bsz, h, nc, ntq, BWD_TILE, ntq, BWD_TILE),
+                       dtype=tiles.dtype, device=tiles.device)
+    i = 0
+    for qt in range(ntq):
+        for kt in range(qt + 1):
+            full[:, :, :, qt, :, kt] = tiles[:, :, :, i]
+            i += 1
+    return full.reshape(bsz, h, nc, ntq * BWD_TILE,
+                        ntq * BWD_TILE)[..., :q, :q]
+
+
+def _bwd_chunk_out_mma(dy, c, cum, prev, *, chunk):
+    """Pass 5 of "mma" alone → (dS_local [B, nc, H, P, N], dcum [B, H, nc,
+    Q]), as ``ref._bwd_chunk_out_mma_ref``; ``prev`` float32."""
+    bsz, t, h, p = dy.shape
+    return _bwd_pass("chunk_out_mma", dy.dtype, _bwd_dims(dy, c, chunk),
+                     dict(dy=dy, c=c, cum=cum, prev=prev),
+                     dict(ds=_f32(prev.shape, dy.device),
+                          dcum=_f32(cum.shape, dy.device)))
+
+
+def _bwd_state_slices(dsl, prev, cum):
+    """Pass 6 of "mma" alone → (dS, partial sums [B, H, nc, S]), as
+    ``ref._bwd_state_slices_ref`` (``dsl`` is not changed)."""
+    bsz, nc, h, p, n = dsl.shape
+    chunk = cum.shape[-1]
+    dims = (bsz, nc * chunk, h, p, 1, n, chunk, ref.state_slices(p, n), 1)
+    return _bwd_pass("state_slices", torch.bfloat16, dims,
+                     dict(prev=prev, cum=cum),
+                     dict(ds=_copy(dsl),
+                          ptot=_f32((bsz, h, nc, ref.state_slices(p, n)),
+                                    dsl.device)))
+
+
+def _bwd_state_side_mma(x, dtc, b, cum, ds, dcum, part, *, chunk):
+    """Pass 7 of "mma" alone → (du, dcum, dtot), as
+    ``ref._bwd_state_side_mma_ref`` (dcum updated on a copy); ``dtc`` is
+    dt in cum's layout, ``part`` the state slices' partial sums."""
+    bsz, t, h, p = x.shape
+    nc = -(-t // chunk)
+    return _bwd_pass("state_side_mma", x.dtype, _bwd_dims(x, b, chunk),
+                     dict(x=x, b=b, cum=cum, dtc=dtc, ds=ds, ptot=part),
+                     dict(du=_f32((bsz, h, nc, chunk, p), x.device),
+                          dcum=_copy(dcum),
+                          dtot=_f32((bsz, h, nc), x.device)))
+
+
+def _bwd_diag_mma(x, dtc, A, b, dy, cb, cum, du, dcum, dtot, *, chunk):
+    """Pass 8 of "mma" alone → (dx, ddt, dA's shares [B, H, nc], dCB
+    [B, H, nc, Q, Q]), as ``ref._bwd_diag_mma_ref`` (``b`` only gives the
+    groups)."""
+    bsz, t, h, p = x.shape
+    nc = -(-t // chunk)
+    ws = torch.zeros(bwd_workspace("mma", bsz, t, h, p, b.shape[2],
+                                   b.shape[3], chunk)["dcbw"],
+                     dtype=torch.float32, device=x.device)
+    dx, ddt, dapart, tiles = _bwd_pass(
+        "diag_mma", x.dtype, _bwd_dims(x, b, chunk),
+        dict(x=x, a=A, dy=dy, cb=cb, cum=cum, dtc=dtc, du=du, dcum=dcum,
+             dtot=dtot),
+        dict(dx=torch.empty(x.shape, dtype=x.dtype, device=x.device),
+             ddt=_f32((bsz, t, h), x.device),
+             dapart=_f32((bsz, h, nc), x.device), dcbw=ws))
+    return dx, ddt, dapart, _untiles(tiles, chunk)
+
+
+def _bwd_group(x, dtc, b, c, dy, cum, prev, ds, dcb, *, chunk):
+    """Pass 9 of "mma" alone → (partial dB, partial dC), each [S, B, nc,
+    G, Q, N], as ``ref._bwd_group_ref``; ``dcb`` [B, H, nc, Q, Q]."""
+    bsz, t, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    shape = bwd_workspace("mma", bsz, t, h, p, g, n, chunk)["pdb"]
+    return _bwd_pass("group", x.dtype, _bwd_dims(x, b, chunk),
+                     dict(x=x, b=b, c=c, dy=dy, cum=cum, dtc=dtc, prev=prev,
+                          ds=ds, dcbw=_tiles(dcb)),
+                     dict(pdb=_f32(shape, x.device),
+                          pdc=_f32(shape, x.device)))
+
+
+def _bwd_reduce_slices(pdb, pdc, dapart, t, dtype):
+    """Pass 10 of "mma" alone → (dB, dC [B, T, G, N] in ``dtype``, dA
+    [H]), as ``ref._bwd_reduce_slices_ref``."""
+    gs, bsz, nc, g, chunk, n = pdb.shape
+    h = dapart.shape[1]
+    db = torch.empty((bsz, t, g, n), dtype=dtype, device=pdb.device)
+    dims = (bsz, t, h, 1, g, n, chunk, ref.state_slices(1, n), gs)
+    return _bwd_pass("reduce_slices", dtype, dims,
+                     dict(pdb=pdb, pdc=pdc, dapart=dapart),
+                     dict(db=db, dc=torch.empty_like(db),
+                          da=_f32((h,), pdb.device)))

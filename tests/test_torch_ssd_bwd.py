@@ -1,13 +1,19 @@
 """The backward of the port's SSD chunked scan: the plain backward
-(``ref.ssd_scan_bwd_ref`` and its five passes) against torch autograd of
-the plain forward ``ref.ssd_scan_ref``, the wrapper's ``SSDScan`` on CPU
-tensors, and — on a card only — the CUDA backward (``ssd_bwd.cu``) and
-each of its passes against the plain versions.
+(``ref.ssd_scan_bwd_ref`` and its five passes, the "fma" route's; the
+"mma" route's six in ``ref.ssd_scan_bwd_mma_ref``) against torch autograd
+of the plain forward ``ref.ssd_scan_ref``, the wrapper's ``SSDScan`` on
+CPU tensors, and — on a card only — the CUDA backward (``ssd_bwd.cu``)
+and each pass of both routes against the plain versions.
 
 Tolerances:
 
 * plain backward against autograd, float64: 1e-10 (the same function, its
-  sums in another order).
+  sums in another order); the "mma" decomposition against the "fma" one
+  and its two dcum identities, float64: 1e-10.
+* the "mma" route's operands emulated in float32 (each float32 operand of
+  a product fed as hi + lo bf16 terms) against the exact backward
+  (float64) on the same bf16 inputs: 1e-5 x max|g| (two bf16 terms keep
+  ~16 significant bits).
 * ``SSDScan`` on CPU tensors against autograd of the plain forward,
   float32: rtol/atol 1e-5.
 * the kernel against the plain backward on the card: the scan's own, f32
@@ -88,11 +94,39 @@ def test_plain_backward_sees_the_carry():
         assert float((g - w).abs().max()) > 1e-4 * float(g.abs().max())
 
 
-@pytest.mark.parametrize("case", CASES[:4], ids=IDS[:4])
-def test_plain_passes_compose_to_the_backward(case):
-    """The five plain passes, each fed the last one's outputs in the
+@pytest.mark.parametrize(
+    "case,route", [(c, "fma") for c in CASES[:4]]
+    + [(c, "mma") for c in CASES],
+    ids=IDS[:4] + [f"{i}-mma" for i in IDS])
+def test_plain_passes_compose_to_the_backward(case, route):
+    """fma: the five plain passes, each fed the last one's outputs in the
     kernel's layouts, give ``ssd_scan_bwd_ref``'s gradients bit for bit;
-    dS of the last chunk and dtot's carry share there are zero."""
+    dS of the last chunk and dtot's carry share there are zero.  mma: the
+    route's six plain passes, in float64, give them within 1e-10."""
+    if route == "mma":
+        *operands, dy = _operands(case, torch.float64)
+        q = case[-1]
+        x, dt, a, b, c = operands
+        cum, states = ref._chunk_state_ref(x, dt, a, b, chunk=q)
+        prev = ref._state_pass_ref(states, cum)
+        dsl, dcum = ref._bwd_chunk_out_mma_ref(dy, c, cum, prev, chunk=q)
+        ds, part = ref._bwd_state_slices_ref(dsl, prev, cum)
+        assert part.shape[-1] == ref.state_slices(case[3], case[5])
+        assert not ds[:, -1].any() and not part[:, :, -1].any()
+        du, dcum, dtot = ref._bwd_state_side_mma_ref(x, dt, b, cum, ds,
+                                                     dcum, part, chunk=q)
+        dx, ddt, da, dcb = ref._bwd_diag_mma_ref(
+            x, dt, a, dy, ref._cb_ref(b, c, chunk=q), cum, du, dcum, dtot,
+            chunk=q)
+        assert not dcb.triu(1).any()
+        pdb, pdc = ref._bwd_group_ref(x, dt, b, c, dy, cum, prev, ds, dcb,
+                                      chunk=q)
+        assert pdb.shape[0] == ref.group_slices(case[2], case[4])
+        db, dc, da = ref._bwd_reduce_slices_ref(pdb, pdc, da, case[1])
+        for got, want in zip((dx, ddt, da, db, dc),
+                             ref.ssd_scan_bwd_ref(*operands, dy, chunk=q)):
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-10)
+        return
     x, dt, a, b, c, dy = _operands(case, torch.float32)
     q = case[-1]
     cum, states = ref._chunk_state_ref(x, dt, a, b, chunk=q)
@@ -109,6 +143,106 @@ def test_plain_passes_compose_to_the_backward(case):
     for got, want in zip((dx, ddt, da, db, dc),
                          ref.ssd_scan_bwd_ref(x, dt, a, b, c, dy, chunk=q)):
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_dcum_identities(case):
+    """The two identities by which the "mma" route drops the per-head dB
+    and dC, in float64 within 1e-10: the inter-chunk term's dcum_q = C_q ·
+    dC_q equals exp(cum_q) dY_q · (C_q S_prevᵀ) (dY against y_off), and the
+    chunk state's B_k · dB_k equals u_k · du_k."""
+    x, dt, a, b, c, dy = _operands(case, torch.float64)
+    q = case[-1]
+    cum, states = ref._chunk_state_ref(x, dt, a, b, chunk=q)
+    prev = ref._state_pass_ref(states, cum)
+    dsl, dc, dcum = ref._bwd_chunk_out_ref(dy, c, cum, prev, chunk=q)
+    dsl_m, dcum_m = ref._bwd_chunk_out_mma_ref(dy, c, cum, prev, chunk=q)
+    torch.testing.assert_close(dsl_m, dsl, rtol=0, atol=1e-10)
+    torch.testing.assert_close(dcum_m, dcum, rtol=0, atol=1e-10)
+    if case[1] > q:   # a state enters a later chunk
+        assert float(dcum.abs().max()) > 1e-3
+    ds, _ = ref._bwd_state_ref(dsl, prev, cum)
+    zero = torch.zeros_like(dcum)
+    du, db, _, _ = ref._bwd_state_side_ref(x, dt, b, cum, ds, zero,
+                                           zero[..., 0], chunk=q)
+    h = x.shape[2]
+    b_dot_db = torch.einsum("bhcqn,bcqhn->bhcq", db, ref._per_head(
+        ref._chunks(b, q), h))
+    u = (ref._chunks(x, q) * ref._chunks(dt, q)[..., None]).permute(
+        0, 3, 1, 2, 4)
+    torch.testing.assert_close((u * du).sum(-1), b_dot_db, rtol=0,
+                               atol=1e-10)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_split_operands_hold_the_backward(case):
+    """The "mma" route's numbers emulated in float32: bf16 inputs (x, b, c,
+    dy), each product's float32 operand fed as hi + lo (hi = bf16(v), lo =
+    bf16(v - hi)), sums in float32 → within 1e-5 x max|g| of the exact
+    backward on the same inputs (float64)."""
+    x, dt, a, b, c, dy = _operands(case, torch.float32, seed=3)
+    x, b, c, dy = (v.bfloat16().float() for v in (x, b, c, dy))
+    q = case[-1]
+    want = ref.ssd_scan_bwd_ref(*(v.double() for v in (x, dt, a, b, c, dy)),
+                                chunk=q)
+    got = ref.ssd_scan_bwd_mma_ref(x, dt, a, b, c, dy, chunk=q,
+                                   rounding="split")
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        assert float((g.double() - w).abs().max()) <= 1e-5 * float(
+            w.abs().max())
+
+
+def test_operand_rounding():
+    """hi + lo keeps a float32 value within 2^-16 of itself; one bf16
+    rounding within 2^-8; an unknown rounding raises."""
+    v = torch.from_numpy(np.random.default_rng(4).standard_normal(4096)
+                         ).float()
+    split = ref._operand(v, "split")
+    single = ref._operand(v, "single")
+    assert torch.equal(ref._operand(v, "exact"), v)
+    assert float(((split - v) / v).abs().max()) <= 2.0 ** -16
+    assert float(((single - v) / v).abs().max()) <= 2.0 ** -8
+    assert float((single - v).abs().max()) > 100 * float(
+        (split - v).abs().max())
+    with pytest.raises(ValueError, match="exact, split or single"):
+        ref._operand(v, "half")
+
+
+@pytest.mark.parametrize("h,g,want", [(80, 1, 8), (4, 1, 4), (6, 3, 2),
+                                      (80, 2, 8), (12, 1, 8)])
+def test_group_slices_cover_each_head_once(h, g, want):
+    """The group pass's head slices of a group: at most ``GROUP_SLICES``,
+    each non-empty, together every head of the group once and in order."""
+    r = h // g
+    s = ref.group_slices(h, g)
+    assert s == want
+    heads = [j for k in range(s) for j in range(*ref._slice_heads(r, s, k))]
+    assert heads == list(range(r))
+    assert all(ref._slice_heads(r, s, k)[1] > ref._slice_heads(r, s, k)[0]
+               for k in range(s))
+
+
+def test_routes_and_workspaces():
+    """bf16 takes "mma", float32 "fma"; the mma route's scratch has no
+    per-head [B, H, nc, Q, N] buffer (the fma route's dB and dC per head),
+    and its dCB tiles are 104,857,600 bytes at mamba2-2.7b's training
+    shape; the tiles round-trip to dCB's lower triangle."""
+    assert ops._bwd_route(torch.bfloat16) == "mma"
+    assert ops._bwd_route(torch.float32) == "fma"
+    shape = (2, 1024, 80, 64, 1, 128, 256)
+    mma = ops.bwd_workspace("mma", *shape)
+    fma = ops.bwd_workspace("fma", *shape)
+    per_head = (2, 80, 4, 256, 128)
+    assert per_head not in mma.values()
+    assert fma["dbh"] == fma["dch"] == per_head
+    assert 4 * np.prod(mma["dcbw"]) == 104_857_600
+    assert mma["ptot"] == (2, 80, 4, 8) and mma["pdb"] == (8, 2, 4, 1, 256,
+                                                            128)
+    dcb = torch.randn(1, 2, 3, 130, 130).tril()
+    tiles = ops._tiles(dcb)
+    assert tiles.shape == (1, 2, 3, 6, 64, 64)
+    assert torch.equal(ops._untiles(tiles, 130), dcb)
 
 
 @pytest.mark.parametrize("case", CASES, ids=IDS)
@@ -133,6 +267,7 @@ def test_function_on_cpu_matches_autograd(case):
         assert torch.equal(g, w)
     assert ops.launch_counts() == {"ssd": 0}
     assert ops.backward_launch_counts() == {"ssd_bwd": 0}
+    assert ops.backward_route_counts() == {"fma": 0, "mma": 0}
 
 
 def test_function_only_where_a_gradient_is_needed():
@@ -233,9 +368,13 @@ def test_kernel_matches_plain_on_card(cuda_device, case, name):
     tol = 2e-4 if name == "f32" else 6e-2
     operands = _on_card(case, dtype, cuda_device)
     ops.reset_backward_launch_counts()
+    ops.reset_backward_route_counts()
     got = ops.ssd_scan_bwd(*operands, chunk=case[-1])
     torch.cuda.synchronize()
     assert ops.backward_launch_counts() == {"ssd_bwd": 1}
+    route = "fma" if name == "f32" else "mma"
+    assert ops.backward_route_counts() == {"fma": int(route == "fma"),
+                                           "mma": int(route == "mma")}
     want = ref.ssd_scan_bwd_ref(*operands, chunk=case[-1])
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
@@ -248,8 +387,9 @@ def test_kernel_matches_plain_on_card(cuda_device, case, name):
 @pytest.mark.parametrize("case", CARD_CASES[-3:] + [CASES[2], CASES[5]])
 @pytest.mark.parametrize("name", ["f32", "bf16"])
 def test_passes_match_plain_on_card(cuda_device, case, name):
-    """Each backward pass against its plain pass, fed the plain passes'
-    outputs, and the same bits on a second run."""
+    """Each backward pass of the dtype's route (f32 "fma", bf16 "mma")
+    against its plain pass, fed the plain passes' outputs, and the same
+    bits on a second run."""
     dtype = torch.float32 if name == "f32" else torch.bfloat16
     tol = 2e-4 if name == "f32" else 6e-2
     x, dt, a, b, c, dy = _on_card(case, dtype, cuda_device)
@@ -266,6 +406,31 @@ def test_passes_match_plain_on_card(cuda_device, case, name):
             _held(g, w, tol)
         assert all(torch.equal(u, v) for u, v in zip(got, run()))
 
+    if name == "bf16":
+        want = ref._bwd_chunk_out_mma_ref(dy, c, cum, prev, chunk=q)
+        same(lambda: ops._bwd_chunk_out_mma(dy, c, cum, prev, chunk=q), want)
+        dsl, dcum = want
+        want = ref._bwd_state_slices_ref(dsl, prev, cum)
+        same(lambda: ops._bwd_state_slices(dsl, prev, cum), want)
+        ds, part = want
+        want = ref._bwd_state_side_mma_ref(x, dt, b, cum, ds, dcum, part,
+                                           chunk=q)
+        same(lambda: ops._bwd_state_side_mma(x, dtc, b, cum, ds, dcum, part,
+                                             chunk=q), want)
+        du, dcum, dtot = want
+        want = ref._bwd_diag_mma_ref(x, dt, a, dy, cb, cum, du, dcum, dtot,
+                                     chunk=q)
+        same(lambda: ops._bwd_diag_mma(x, dtc, a, b, dy, cb, cum, du, dcum,
+                                       dtot, chunk=q), want)
+        _, _, da, dcb = want
+        want = ref._bwd_group_ref(x, dt, b, c, dy, cum, prev, ds, dcb,
+                                  chunk=q)
+        same(lambda: ops._bwd_group(x, dtc, b, c, dy, cum, prev, ds, dcb,
+                                    chunk=q), want)
+        pdb, pdc = want
+        same(lambda: ops._bwd_reduce_slices(pdb, pdc, da, case[1], dtype),
+             ref._bwd_reduce_slices_ref(pdb, pdc, da, case[1]))
+        return
     want = ref._bwd_chunk_out_ref(dy, c, cum, prev, chunk=q)
     same(lambda: ops._bwd_chunk_out(dy, c, cum, prev, chunk=q), want)
     dsl, dc, dcum = want
